@@ -18,7 +18,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
@@ -56,8 +55,7 @@ def main():
     basis_true = cp.Cplx(
         jnp.stack([H0p.im, Vp.im]), jnp.stack([-H0p.re, -Vp.re]))
     y_obs = diff.adjoint_solve(
-        basis_true, coeff, theta, y0, 0.0, T, n_steps, order=4,
-        use_pallas=False)
+        basis_true, coeff, theta, y0, 0.0, T, n_steps, order=4)
 
     # ------ learn V (basis element 1) from the observations -------------
     def model_basis(V_re, V_im):
@@ -70,7 +68,7 @@ def main():
         V_re, V_im = params
         yf = diff.adjoint_solve(
             model_basis(V_re, V_im), coeff, theta, y0, 0.0, T, n_steps,
-            order=4, use_pallas=False, basis_grad=True)
+            order=4, basis_grad=True)
         return jnp.sum((yf.re - y_obs.re) ** 2 + (yf.im - y_obs.im) ** 2)
 
     params = (jnp.zeros((d, d)), jnp.zeros((d, d)))

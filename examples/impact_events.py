@@ -3,7 +3,7 @@
 A projectile with quadratic drag has no closed-form impact time; the
 classic way to find the range is a terminal event on altitude z = 0
 (scipy's solve_ivp(events=...) tutorial problem). Here the whole pipeline
-is TPU-native masked arithmetic (vec_ode_tpu/events.py):
+is branchless masked arithmetic (vec_ode_tpu/events.py):
 
   1. an ENSEMBLE of launch angles integrates in one batched adaptive
      solve, each trajectory stopping at ITS OWN impact event
@@ -25,7 +25,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -1,29 +1,20 @@
-"""IN-KERNEL event detection: stop each trajectory at a population
-threshold without leaving the persistent loop kernel.
+"""Stop each trajectory of an ensemble at a population threshold.
 
 A Landau-Zener sweep ensemble integrates until each trajectory's excited-
 state population first crosses a threshold. The event function is a
-DECLARED observable (events.QuadraticObservable: g = Σ qᵢ|xᵢ|² − c), so
-the whole regula-falsi search — crossing detection, bracket shrinking,
-terminal stop at DONE_EVENT, located time/state recording — runs inside
-the lane-packed persistent Pallas kernel (ops/pallas_loop.py): the solve
-stays ONE kernel launch. An opaque Python callable would instead fall
-back to the XLA driver (~3-4x slower on this config) with identical
-semantics.
+declared observable (events.QuadraticObservable: g = Σ qᵢ|xᵢ|² − c); the
+batched driver's regula-falsi search — crossing detection, bracket
+shrinking, terminal stop at DONE_EVENT, located time/state recording — runs
+as masked arithmetic inside the one driver loop. Runs in f32 on the default
+JAX backend:
 
-Runs on CPU (kernel interpret mode) in ~1 min:
-
-    python examples/threshold_events_kernel.py
+    python examples/threshold_events.py
 """
 
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,26 +44,18 @@ def main():
     )
     cfg = EventConfig(events=(event,), t_tol=1e-4)
 
-    # interpret=True runs the kernel on CPU; on a TPU backend drop it
-    stepper = vexp.MagnusModulated4(mod, interpret=True)
-    orig = jax.default_backend
-    jax.default_backend = lambda: "tpu"   # engage the kernel path on CPU
-    try:
-        sol = ensemble_solve(
-            mod, y0, -20.0, 20.0, stepper=stepper, adaptive=True,
-            h0=1e-2, time_dtype=jnp.float32, events=cfg,
-            ctl=vo.StepControl(rtol=1e-5, max_steps=4000, min_dt=1e-4,
-                               max_dt=1.0),
-        )
-    finally:
-        jax.default_backend = orig
+    sol = ensemble_solve(
+        mod, y0, -20.0, 20.0, stepper=vexp.MagnusModulated4(mod),
+        adaptive=True, h0=1e-2, time_dtype=jnp.float32, events=cfg,
+        ctl=vo.StepControl(rtol=1e-5, max_steps=4000, min_dt=1e-4,
+                           max_dt=1.0),
+    )
 
-    assert sol.path == "pallas-loop-persistent-packed", sol.path
     assert (np.asarray(sol.status) == vo.DONE_EVENT).all()
     t_hit = np.asarray(sol.event_t)[:, 0]
     pop = (np.asarray(sol.event_y.re)[:, 0, 1] ** 2
            + np.asarray(sol.event_y.im)[:, 0, 1] ** 2)
-    print(f"execution path : {sol.path} (whole solve = 1 kernel launch)")
+    print(f"execution path : {sol.path}")
     print(f"threshold hit  : t* = {t_hit[0]:.5f} "
           f"(all {B} trajectories, spread {np.ptp(t_hit):.1e})")
     print(f"population(t*) : {pop[0]:.5f} (threshold {THRESHOLD})")

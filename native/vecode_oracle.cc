@@ -125,7 +125,7 @@ void matmul(int d, const double* A, const double* B, double* out) {
 
 // y <- e^M y via scaling + degree-20 Taylor ACTION (||M_s||_1 <= 0.25 puts
 // the truncation at ~1e-32, far below f64 eps). Independent of the JAX
-// implementation (which uses Pade-13 on CPU / Taylor-12 chains on TPU).
+// implementation (Pade-13 in f64, Taylor-12 in f32).
 void expmv(int d, const double* M, double* y) {
   double nrm = 0.0;
   for (int j = 0; j < d; ++j) {

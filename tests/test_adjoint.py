@@ -202,8 +202,7 @@ def test_adaptive_adjoint_matches_frozen_sequence_oracle():
     stepper = MagnusModulated4(
         __import__("vec_ode_tpu.exp.modulated", fromlist=["ModulatedOperator"]
                    ).ModulatedOperator(basis, lambda t: _coeff_fn(t, theta)),
-        adaptive=True, use_pallas=False,
-    )
+        adaptive=True, )
     step_fn = stepper.make_step_fn()
     t_grid = make_grid(jnp.float64(0.0), jnp.float64(1.0),
                        dtype=jnp.float64)
@@ -320,7 +319,7 @@ def test_adjoint_time_endpoint_gradients():
 
     def loss(t0, tf):
         yf = adjoint_solve(basis, _coeff_fn, theta, y0, t0, tf,
-                           n_steps=64, order=4, use_pallas=False)
+                           n_steps=64, order=4)
         return jnp.sum(yf.re[:, 0] ** 2 + yf.im[:, 1] ** 2)
 
     t0v, tfv = jnp.float64(0.1), jnp.float64(1.3)
@@ -351,7 +350,7 @@ def test_adaptive_adjoint_time_endpoint_gradients():
 
     def loss(t0, tf):
         yf = adjoint_solve_adaptive(basis, _coeff_fn, theta, y0, t0, tf,
-                                    ctl=ctl, h0=0.05, use_pallas=False)
+                                    ctl=ctl, h0=0.05)
         return jnp.sum(yf.re[:, 0] ** 2 + yf.im[:, 1] ** 2)
 
     t0v, tfv = jnp.float64(0.1), jnp.float64(1.1)
@@ -379,8 +378,7 @@ def test_pulse_control_optimization_end_to_end():
     theta = 0.1 * jnp.ones(6, jnp.float64)
 
     vg = jax.jit(jax.value_and_grad(
-        lambda th: pc.infidelity(th, psi0, tgt, n_steps=192,
-                                 use_pallas=False)))
+        lambda th: pc.infidelity(th, psi0, tgt, n_steps=192)))
     opt = optax.adam(0.3)
     st = opt.init(theta)
     hist = []
@@ -409,7 +407,7 @@ def test_adjoint_trajectory_saves_match_oracle(saves):
 
     def loss(th, y, t0, tf):
         ys = adjoint_solve(basis, _coeff_fn, th, y, t0, tf, N, order=4,
-                           use_pallas=False, save_at_steps=saves)
+                           save_at_steps=saves)
         return jnp.sum(ys.re[..., 0] ** 2) + 0.5 * jnp.sum(ys.im[..., 1] ** 2)
 
     ext, pairs = ModulatedOperator(basis, lambda t: None
@@ -456,7 +454,7 @@ def test_adjoint_saves_validation():
     for bad in [(0, 4), (4, 4), (5, 3), (9,), ()]:
         with pytest.raises(ValueError, match="save_at_steps"):
             adjoint_solve(basis, _coeff_fn, theta, y0, 0.0, 1.0, 8,
-                          use_pallas=False, save_at_steps=bad)
+                          save_at_steps=bad)
 
 
 def test_gate_synthesis_end_to_end():
@@ -470,8 +468,7 @@ def test_gate_synthesis_end_to_end():
     H = np.array([[1, 1], [1, -1]]) / np.sqrt(2)
     theta = 0.1 * jnp.ones(6, jnp.float64)
     vg = jax.jit(jax.value_and_grad(
-        lambda th: pc.gate_infidelity(th, H, n_steps=192,
-                                      use_pallas=False)))
+        lambda th: pc.gate_infidelity(th, H, n_steps=192)))
     opt = optax.adam(0.3)
     st = opt.init(theta)
     hist = []
@@ -484,51 +481,42 @@ def test_gate_synthesis_end_to_end():
     assert min(hist) < 1e-6, f"gate synthesis stalled: {min(hist)}"
 
 
-def test_adjoint_bwd_kernel_matches_xla_composition():
-    """ops.pallas_expmv.adjoint_bwd_pallas (interpret mode): the fused
-    (reconstruct, transport, all-K Fréchet) step must match the three-call
-    XLA composition it replaces (shared-chain recurrence vs (2D)-wide
-    augmented embedding — same math, different factorization)."""
-    from vec_ode_tpu.exp.modulated import modulated_exp_apply
-    from vec_ode_tpu.ops.pallas_expmv import adjoint_bwd_pallas
+def _real_core(Kp=3, D=8, seed=21):
+    """An adjoint core over a random real (Kp, D, D) basis (order 2: the
+    basis is used as given)."""
+    rng = np.random.default_rng(seed)
+    W = jnp.asarray(rng.standard_normal((Kp, D, D)) / np.sqrt(D))
+    core = diff._adjoint_core(W, lambda t, th: None, order=2, m=None,
+                              max_squarings=16)
+    return rng, W, core
 
-    rng = np.random.default_rng(21)
-    Kp, D, B = 3, 128, 8
-    W = jnp.asarray(rng.standard_normal((Kp, D, D)) / np.sqrt(D),
-                    jnp.float32)
-    c = jnp.asarray(rng.standard_normal((B, Kp)) * 0.4, jnp.float32)
-    x_next = jnp.asarray(rng.standard_normal((B, D)), jnp.float32)
-    a_next = jnp.asarray(rng.standard_normal((B, D)), jnp.float32)
 
-    xn_k, an_k, cb_k = adjoint_bwd_pallas(
-        c, x_next, a_next, W, m=8, theta=0.25, tile=8, interpret=True)
+def test_adjoint_bwd_row_matches_expm_frechet():
+    """One reverse row (reconstruct, transport, all-K Fréchet inner
+    products) against dense f64 linear algebra: x_n = e^{-M} x_{n+1},
+    a_n = (e^{M})^T a_{n+1}, cbar_k = <a_{n+1}, L(M, W_k) x_n> with L the
+    Fréchet derivative of expm (ops.expm.expm_frechet)."""
+    from vec_ode_tpu.ops.expm import expm_frechet
 
-    WT = jnp.swapaxes(W, -1, -2)
-    zero = jnp.zeros_like(W)
-    WD = jnp.concatenate(
-        [jnp.concatenate([W, zero], axis=-1),
-         jnp.concatenate([zero, W], axis=-1)], axis=-2)
-    WU = jnp.concatenate(
-        [jnp.concatenate([zero, W], axis=-1),
-         jnp.concatenate([zero, zero], axis=-1)], axis=-2)
-    WA = jnp.concatenate([WD, WU], axis=0)
-    xn_r = modulated_exp_apply(W, -c, x_next, m=8)
-    an_r = modulated_exp_apply(WT, c, a_next, m=8)
-    xa = jnp.concatenate([jnp.zeros_like(xn_r), xn_r], axis=-1)
-    xa = jnp.broadcast_to(xa, (Kp,) + xa.shape)
-    ca = jnp.concatenate(
-        [jnp.broadcast_to(c, (Kp,) + c.shape),
-         jnp.broadcast_to(jnp.eye(Kp, dtype=c.dtype)[:, None, :],
-                          (Kp, B, Kp))], axis=-1)
-    fre = modulated_exp_apply(WA, ca, xa, m=8)[..., :D]
-    cb_r = jnp.einsum("kbi,bi->bk", fre, a_next)
-
-    np.testing.assert_allclose(np.asarray(xn_k), np.asarray(xn_r),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(an_k), np.asarray(an_r),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(cb_k), np.asarray(cb_r),
-                               rtol=2e-4, atol=2e-4)
+    rng, W, core = _real_core()
+    Kp, D, B = W.shape[0], W.shape[1], 4
+    c = jnp.asarray(rng.standard_normal((B, Kp)) * 0.4)
+    x_next = jnp.asarray(rng.standard_normal((B, D)))
+    a_next = jnp.asarray(rng.standard_normal((B, D)))
+    xn, an, cb = diff._bwd_row(core, c, x_next, a_next, reduce=False)
+    for b in range(B):
+        M = jnp.einsum("k,kij->ij", c[b], W)
+        U = expm(M)
+        np.testing.assert_allclose(np.asarray(xn[b]),
+                                   np.asarray(expm(-M) @ x_next[b]),
+                                   rtol=1e-11, atol=1e-11)
+        np.testing.assert_allclose(np.asarray(an[b]),
+                                   np.asarray(U.T @ a_next[b]),
+                                   rtol=1e-11, atol=1e-11)
+        cb_ref = [float(a_next[b] @ (expm_frechet(M, W[k]) @ xn[b]))
+                  for k in range(Kp)]
+        np.testing.assert_allclose(np.asarray(cb[b]), cb_ref,
+                                   rtol=1e-9, atol=1e-11)
 
 
 def test_adjoint_gradient_shards_over_mesh():
@@ -553,7 +541,7 @@ def test_adjoint_gradient_shards_over_mesh():
 
     def loss(th, y):
         yf = adjoint_solve(basis, _coeff_fn, th, y, 0.0, 1.0, 32,
-                           order=4, use_pallas=False)
+                           order=4)
         return jnp.sum(yf.re[:, 0] ** 2 + yf.im[:, 0] ** 2)
 
     v0, g0 = jax.value_and_grad(loss)(theta, y0)
@@ -566,49 +554,32 @@ def test_adjoint_gradient_shards_over_mesh():
     np.testing.assert_allclose(np.asarray(g1), np.asarray(g0), rtol=1e-10)
 
 
-def test_adjoint_sweep_kernels_match_scan_composition():
-    """Persistent whole-sweep kernels (interpret mode): forward R-row sweep
-    equals R sequential modulated_exp_apply calls; backward sweep's
-    (a0, per-row cbar) equal the per-step adjoint_bwd composition."""
-    from vec_ode_tpu.exp.modulated import modulated_exp_apply
-    from vec_ode_tpu.ops.pallas_expmv import (
-        adjoint_bwd_pallas,
-        adjoint_sweep_bwd_pallas,
-        adjoint_sweep_fwd_pallas,
-    )
+def test_rows_sweeps_match_dense_vjp():
+    """Forward R-row sweep == R sequential dense expm applications;
+    backward sweep's (a0, per-row cbar) == jax.vjp of that dense forward
+    composition w.r.t. (x0, rows) (f64)."""
+    rng, W, core = _real_core(seed=23)
+    Kp, D, B, R = W.shape[0], W.shape[1], 4, 5
+    c_all = jnp.asarray(rng.standard_normal((R, Kp)) * 0.3)
+    x0 = jnp.asarray(rng.standard_normal((B, D)))
+    abar = jnp.asarray(rng.standard_normal((B, D)))
 
-    rng = np.random.default_rng(23)
-    Kp, D, B, R = 3, 128, 8, 5
-    W = jnp.asarray(rng.standard_normal((Kp, D, D)) / np.sqrt(D),
-                    jnp.float32)
-    c_all = jnp.asarray(rng.standard_normal((R, Kp)) * 0.3, jnp.float32)
-    x0 = jnp.asarray(rng.standard_normal((B, D)), jnp.float32)
-    abar = jnp.asarray(rng.standard_normal((B, D)), jnp.float32)
+    def dense_forward(x, rows):
+        for r in range(R):
+            U = expm(jnp.einsum("k,kij->ij", rows[r], W))
+            x = jnp.einsum("ij,bj->bi", U, x, precision=HIGHEST)
+        return x
 
-    yk = adjoint_sweep_fwd_pallas(c_all, x0, W, m=8, theta=0.25, tile=8,
-                                  interpret=True)
-    yr = x0
-    for r in range(R):
-        yr = modulated_exp_apply(W, c_all[r], yr, m=8)
+    yk = diff._rows_forward(core, c_all, x0)
+    yr, vjp = jax.vjp(dense_forward, x0, c_all)
     np.testing.assert_allclose(np.asarray(yk), np.asarray(yr),
-                               rtol=3e-5, atol=3e-5)
-
-    a0_k, cb_k = adjoint_sweep_bwd_pallas(c_all, yk, abar, W, m=8,
-                                          theta=0.25, tile=8,
-                                          interpret=True)
-    cb_k = jnp.sum(cb_k, axis=0)
-    x, a = yk, abar
-    cb_r = []
-    for r in range(R - 1, -1, -1):
-        cr = jnp.broadcast_to(c_all[r], (B, Kp))
-        x, a, cb = adjoint_bwd_pallas(cr, x, a, W, m=8, theta=0.25,
-                                      tile=8, interpret=True)
-        cb_r.append(jnp.sum(cb, axis=0))
-    cb_r = jnp.stack(cb_r[::-1])
-    np.testing.assert_allclose(np.asarray(a0_k), np.asarray(a),
-                               rtol=3e-5, atol=3e-5)
+                               rtol=1e-11, atol=1e-11)
+    a0_r, cb_r = vjp(abar)
+    a0_k, cb_k = diff._rows_backward(core, c_all, yk, abar)
+    np.testing.assert_allclose(np.asarray(a0_k), np.asarray(a0_r),
+                               rtol=1e-9, atol=1e-10)
     np.testing.assert_allclose(np.asarray(cb_k), np.asarray(cb_r),
-                               rtol=3e-4, atol=3e-4)
+                               rtol=1e-8, atol=1e-10)
 
 
 def test_adjoint_order6_convergence():
@@ -627,12 +598,12 @@ def test_adjoint_order6_convergence():
     theta = jnp.asarray([0.9, 2.4], jnp.float64)
 
     ref = adjoint_solve(basis, _coeff_fn, theta, y0, 0.0, 1.5, 512,
-                        order=6, use_pallas=False)
+                        order=6)
     refw = np.concatenate([np.asarray(ref.re), np.asarray(ref.im)])
 
     def err(n, order):
         yf = adjoint_solve(basis, _coeff_fn, theta, y0, 0.0, 1.5, n,
-                           order=order, use_pallas=False)
+                           order=order)
         yw = np.concatenate([np.asarray(yf.re), np.asarray(yf.im)])
         return np.linalg.norm(yw - refw)
 
@@ -659,8 +630,7 @@ def test_adjoint_order6_gradients_match_expm_oracle():
     theta = jnp.asarray([0.8, 2.5], jnp.float64)
 
     def loss(th, y, t0, tf):
-        yf = adjoint_solve(basis, _coeff_fn, th, y, t0, tf, N, order=6,
-                           use_pallas=False)
+        yf = adjoint_solve(basis, _coeff_fn, th, y, t0, tf, N, order=6)
         return jnp.sum(yf.re[:, 0] ** 2 + yf.im[:, 1] ** 2)
 
     ext, pairs = ModulatedOperator(basis, lambda t: None
@@ -757,7 +727,7 @@ def test_adjoint_three_controls_matches_oracle():
     for order in (4, 6):
         def loss(th):
             yf = adjoint_solve(basis, cfn, th, y0, 0.0, 1.2, N,
-                               order=order, use_pallas=False)
+                               order=order)
             return jnp.sum(yf.re[:, 0] ** 2 + yf.im[:, 1] ** 2)
 
         ext, pairs = ModulatedOperator(basis, lambda t: None
@@ -808,8 +778,7 @@ def test_adaptive_adjoint_order6():
 
     def loss(th):
         yf = adjoint_solve_adaptive(basis, _coeff_fn, th, y0, 0.0, 1.0,
-                                    ctl=ctl, order=6, h0=0.2,
-                                    use_pallas=False)
+                                    ctl=ctl, order=6, h0=0.2)
         return jnp.sum(yf.re[:, 0] ** 2 + yf.im[:, 1] ** 2)
 
     v, g = jax.value_and_grad(loss)(theta)
@@ -824,7 +793,7 @@ def test_adaptive_adjoint_order6():
     # order 6 takes far fewer accepted iterations than order 4 at this rtol
     _, st6 = adjoint_solve_adaptive(basis, _coeff_fn, theta, y0, 0.0, 1.0,
                                     ctl=ctl, order=6, h0=0.2,
-                                    use_pallas=False, return_status=True)
+                                    return_status=True)
     assert (np.asarray(st6) == vo.DONE).all()
 
 
@@ -850,8 +819,7 @@ def test_duration_gradient_total_derivative():
 
     def loss(T):
         th = {"a": amps, "T": T}
-        yf = adjoint_solve(basis, cfn, th, y0, 0.0, T, N, order=4,
-                           use_pallas=False)
+        yf = adjoint_solve(basis, cfn, th, y0, 0.0, T, N, order=4)
         return jnp.sum(yf.re[:, 0] ** 2 + yf.im[:, 1] ** 2)
 
     T0 = jnp.float64(2.3)
@@ -875,8 +843,7 @@ def test_adjoint_vmaps_over_pulses():
     thetas = jnp.asarray(rng.standard_normal((P, 2)), jnp.float64)
 
     def loss(th):
-        yf = adjoint_solve(basis, _coeff_fn, th, y0, 0.0, 1.0, 32,
-                           use_pallas=False)
+        yf = adjoint_solve(basis, _coeff_fn, th, y0, 0.0, 1.0, 32)
         return jnp.sum(yf.re[:, 0] ** 2 + yf.im[:, 0] ** 2)
 
     vv, gv = jax.vmap(jax.value_and_grad(loss))(thetas)

@@ -1,4 +1,4 @@
-"""Anchored adjoint for DISSIPATIVE operators (VERDICT r2 next-step #6):
+"""Anchored adjoint for DISSIPATIVE operators:
 on a strongly damped system, backward reconstruction with inverse
 propagators amplifies roundoff ~e^{2 gamma T}; anchoring every k steps
 bounds it per segment. Oracle: jax.grad through the differentiable scan
@@ -70,7 +70,7 @@ def test_anchoring_bounds_dissipative_gradient_error():
         def loss(th):
             yf = diff.adjoint_solve(
                 basis, coeff, th, y0w, 0.0, 1.0, n_steps, order=4,
-                use_pallas=False, anchor_every=anchor_every)
+                anchor_every=anchor_every)
             return jnp.sum(w * yf)
 
         return jax.grad(loss)(theta)
@@ -90,7 +90,7 @@ def test_anchored_primal_matches_plain():
     """Anchoring changes the backward factorization only — the forward
     solve is the identical discrete scheme."""
     basis, theta, coeff, y0w, _ = _damped_setup(gamma=3.0)
-    kw = dict(order=4, use_pallas=False)
+    kw = dict(order=4)
     yf_a = diff.adjoint_solve(basis, coeff, theta, y0w, 0.0, 1.0, 32,
                               anchor_every=8, **kw)
     yf_p = diff.adjoint_solve(basis, coeff, theta, y0w, 0.0, 1.0, 32, **kw)

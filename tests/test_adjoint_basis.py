@@ -1,5 +1,5 @@
 """Basis-matrix gradients through the reversible adjoint
-(diff.make_adjoint_basis_solver — VERDICT r2 next-step #5): oracle is
+(diff.make_adjoint_basis_solver): oracle is
 jax.grad through a direct expm-based differentiable scan of the SAME
 discrete scheme."""
 
@@ -125,7 +125,7 @@ def test_basis_grad_endpoint_and_theta_consistency():
     adj_b = diff.make_adjoint_basis_solver(
         basis, coeff, n_steps=n_steps, order=4)
     adj = diff.make_adjoint_solver(
-        basis, coeff, n_steps=n_steps, order=4, use_pallas=False)
+        basis, coeff, n_steps=n_steps, order=4)
 
     gb = jax.grad(
         lambda th, t0, tf: jnp.sum(w * adj_b(th, y0w, t0, tf, W0)),

@@ -73,7 +73,7 @@ def test_cfm_adjoint_primal_and_grads_match_direct():
     basis, theta, coeff, y0w, w = _setup()
     n_steps = 6
     adj = diff.make_adjoint_cfm_solver(
-        basis, coeff, n_steps=n_steps, use_pallas=False)
+        basis, coeff, n_steps=n_steps)
     direct = _direct(basis, coeff, n_steps)
 
     yf_a = adj(theta, y0w, 0.1, 0.9)
@@ -99,12 +99,12 @@ def test_cfm_adjoint_custom_scheme_validation():
     with pytest.raises(ValueError, match="alpha must be"):
         diff.make_adjoint_cfm_solver(
             basis, coeff, n_steps=4, alpha=((0.5,),),
-            c=(0.2, 0.8), use_pallas=False)
+            c=(0.2, 0.8))
 
     # a custom 1-row scheme (exponential Euler on the GL2 average) runs
     solver = diff.make_adjoint_cfm_solver(
         basis, coeff, n_steps=8, alpha=((0.5, 0.5),),
-        c=tuple(tb.C_GAUSS_LEGENDRE_4), use_pallas=False)
+        c=tuple(tb.C_GAUSS_LEGENDRE_4))
     yf = solver(theta, y0w, 0.0, 0.5)
     assert np.all(np.isfinite(np.asarray(yf)))
 
@@ -118,7 +118,7 @@ def test_cfm_adaptive_adjoint_matches_replay_oracle():
     basis, theta, coeff, y0w, w = _setup(seed=4)
     ctl = vo.StepControl(rtol=1e-6, min_dt=1e-6, max_dt=0.3, max_steps=64)
     solver = diff.make_adaptive_adjoint_solver(
-        basis, coeff, ctl=ctl, scheme="cfm4", use_pallas=False)
+        basis, coeff, ctl=ctl, scheme="cfm4")
 
     yf, status = solver(theta, y0w, 0.0, 0.8, 1e-2)
     assert (np.asarray(status) == 1).all()
@@ -142,8 +142,7 @@ def test_cfm_adaptive_adjoint_matches_replay_oracle():
     from vec_ode_tpu.exp.modulated import CFM4Modulated, ModulatedOperator
 
     stepper = CFM4Modulated(
-        ModulatedOperator(basis, lambda t: coeff(t, theta)),
-        use_pallas=False)
+        ModulatedOperator(basis, lambda t: coeff(t, theta)))
     t_grid = vo.make_grid(0.0, 0.8, dtype=jnp.float64)
     st = init_state(
         cp.Cplx(y0w[..., :4], y0w[..., 4:]), t_grid,

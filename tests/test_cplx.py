@@ -161,8 +161,8 @@ def test_landau_zener_pair_unitarity():
 
 
 def test_triple_jump_on_pair_leaves():
-    # complex-coefficient composition over real-pair leaves: the TPU path for
-    # TripleJump/SemiComplex splits
+    # complex-coefficient composition over real-pair leaves: the real-pair
+    # path for TripleJump/SemiComplex splits
     A = np.asarray([[0.0, 1.0], [-1.0, 0.0]])
     B = np.asarray([[-0.2, 0.0], [0.0, -0.6]])
     exact = scipy.linalg.expm(A + B) @ np.asarray([1.0, 0.5])

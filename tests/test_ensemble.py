@@ -196,7 +196,7 @@ def test_batched_stepper_warm_start_sharded():
     natively-batched steppers (was a closure-capture crash)."""
     from vec_ode_tpu.models import DrivenDense
     from vec_ode_tpu.ops import cplx as cp
-    from vec_ode_tpu.ops.pallas_rk import FusedModulatedLinearRK
+    from vec_ode_tpu.ops.modulated_rk import FusedModulatedLinearRK
 
     model = DrivenDense.make(d=64, seed=9)
     B = 16
@@ -205,8 +205,6 @@ def test_batched_stepper_warm_start_sharded():
     psi0 /= np.linalg.norm(psi0, axis=-1, keepdims=True)
     y0 = cp.from_complex(psi0, jnp.float64)
     st = FusedModulatedLinearRK.from_driven_dense(model, jnp.float64)
-    st = FusedModulatedLinearRK(M0=st.M0, M1=st.M1, u_fn=st.u_fn,
-                                use_pallas=False)
     mesh = ensemble_mesh()
     ctl = vo.StepControl(rtol=1e-8, max_dt=0.25)
     h0s = jnp.full((B,), 0.02, jnp.float64)
@@ -277,7 +275,7 @@ def test_ensemble_solve_compact_matches_and_improves():
 
 def test_ensemble_h0_range_validation():
     """with_init_step range check (ode.rs:287-296) now also guards the
-    ensemble path (VERDICT r1 housekeeping)."""
+    ensemble path."""
     y0 = jnp.ones((4, 2))
     ctl = vo.StepControl(min_dt=1e-6, max_dt=0.5)
     f = lambda t, y: -y

@@ -3,8 +3,8 @@ error becomes ONE commutator-basis contraction on the advanced state
 (dv = w2*xf) instead of a second full Taylor chain — the modulated twin of
 exp/magnus.py Magnus4(fast_error=True), with exact f64 parity to it.
 
-Runs on every tier: XLA fallback, per-step Pallas kernel, fused loop
-kernel, lane-packed loop (interpret mode pins each to the XLA driver).
+Checked per step and per solve against the generic dense-split
+fast_error stepper, on small-d and 2-level ensembles.
 """
 
 import jax
@@ -73,74 +73,58 @@ def test_fast_error_accuracy_vs_pair():
     assert d < 1e-6, d
 
 
-def _run_fused(stepper, y0, t_grid, ctl):
-    orig = jax.default_backend
-    try:
-        jax.default_backend = lambda: "tpu"
-        return stepper.fused_loop_solve(y0, t_grid, 1e-2, ctl=ctl,
-                                        adaptive=True)
-    finally:
-        jax.default_backend = orig
+def test_fast_error_batched_solve_matches_generic():
+    """Batched ensemble with fast_error: the same step sequences and
+    trajectories as the generic fast_error stepper solved per trajectory
+    (f64)."""
+    model = DrivenDense.make(d=8, seed=0)
+    mod = model.modulated(jnp.float64)
+    op_fn = lambda t: model.op_pair(t, jnp.float64)  # noqa: E731
+    y0 = _psi0(8, B=6, seed=21)
+    ctl = vo.StepControl(rtol=1e-6, min_dt=1e-5, max_dt=0.2, max_steps=500)
+    kw = dict(adaptive=True, ctl=ctl, h0=1e-2, time_dtype=jnp.float64)
+    sol_b = ensemble_solve(
+        None, y0, 0.0, 0.5,
+        stepper=vexp.MagnusModulated4(mod, fast_error=True), **kw)
+    sol_g = ensemble_solve(
+        op_fn, y0, 0.0, 0.5,
+        stepper=vexp.Magnus4(vexp.DenseCplxSplit(), fast_error=True,
+                             batched=False), **kw)
+    assert (np.asarray(sol_b.status) == vo.DONE).all()
+    np.testing.assert_array_equal(np.asarray(sol_b.n_accept),
+                                  np.asarray(sol_g.n_accept))
+    np.testing.assert_allclose(np.asarray(sol_b.y_final.re),
+                               np.asarray(sol_g.y_final.re), atol=1e-9)
 
 
-def test_fast_error_fused_loop_matches_xla_driver():
-    """d=64 complex, fused loop kernel (interpret): the err-action path
-    (C=1 + one basis contraction) matches the XLA driver running the same
-    fast_error stepper."""
-    model = DrivenDense.make(d=64, seed=0)
-    mod = model.modulated(jnp.float32)
-    y0 = _psi0(64, B=16, seed=21, dtype=jnp.float32)
-    from vec_ode_tpu.driver import integrate, make_grid
+def test_fast_error_batched_step_matches_generic():
+    """One batched fast_error step == the generic fast_error step taken
+    per trajectory: y and the error estimate (f64)."""
+    from vec_ode_tpu import lc
 
-    t_grid = make_grid(jnp.float32(0.0), jnp.float32(0.5),
-                       dtype=jnp.float32)
-    ctl = vo.StepControl(rtol=1e-4, min_dt=1e-5, max_dt=0.2, max_steps=500)
-    st_f = vexp.MagnusModulated4(mod, interpret=True, fast_error=True)
-    sol_f = _run_fused(st_f, y0, t_grid, ctl)
-    assert sol_f is not None, "fused loop did not engage with fast_error"
-    assert sol_f.path.startswith("pallas-loop")
-
-    st_x = vexp.MagnusModulated4(mod, use_pallas=False, fast_error=True)
-    sol_x = integrate(
-        st_x.make_step_fn(), y0, t_grid, 1e-2, adaptive=True, ctl=ctl,
-        error_norm=st_x.error_norm, batch_shape=(y0.re.shape[0],),
-    )
-    assert (np.asarray(sol_f.status) == vo.DONE).all()
-    a_f, a_x = np.asarray(sol_f.n_accept), np.asarray(sol_x.n_accept)
-    assert (a_f == a_x).mean() > 0.8, (a_f, a_x)
-    np.testing.assert_allclose(np.asarray(sol_f.y_final.re),
-                               np.asarray(sol_x.y_final.re),
-                               rtol=1e-4, atol=1e-4)
+    model = DrivenDense.make(d=8, seed=0)
+    mod = model.modulated(jnp.float64)
+    op_fn = lambda t: model.op_pair(t, jnp.float64)  # noqa: E731
+    B = 6
+    y0 = _psi0(8, B=B, seed=3)
+    t = jnp.asarray(np.linspace(0.0, 0.5, B))
+    dt = jnp.full((B,), 5e-2)
+    yf, e = vexp.MagnusModulated4(mod, fast_error=True).make_step_fn()(
+        t, y0, dt)
+    gen = vexp.Magnus4(vexp.DenseCplxSplit(), fast_error=True).make_step_fn(
+        op_fn)
+    for b in range(B):
+        yb, eb = gen(t[b], cp.Cplx(y0.re[b], y0.im[b]), dt[b])
+        np.testing.assert_allclose(np.asarray(yf.re[b]), np.asarray(yb.re),
+                                   rtol=1e-11, atol=1e-11)
+        np.testing.assert_allclose(float(e[b]), float(lc.norm_l2(eb)),
+                                   rtol=1e-8)
+    assert float(np.asarray(e).max()) > 0.0
 
 
-def test_fast_error_per_step_kernel_matches_xla():
-    """Per-step fused kernel (interpret) == XLA fallback of the SAME
-    fast_error stepper: y and the error estimate."""
-    model = DrivenDense.make(d=64, seed=0)
-    mod = model.modulated(jnp.float32)
-    y0 = _psi0(64, B=16, seed=3, dtype=jnp.float32)
-    t = jnp.zeros((16,), jnp.float32)
-    dt = jnp.full((16,), 5e-2, jnp.float32)
-
-    st_p = vexp.MagnusModulated4(mod, interpret=True, fast_error=True)
-    st_x = vexp.MagnusModulated4(mod, use_pallas=False, fast_error=True)
-    orig = jax.default_backend
-    try:
-        jax.default_backend = lambda: "tpu"
-        yf_p, e_p = st_p.make_step_fn()(t, y0, dt)
-    finally:
-        jax.default_backend = orig
-    yf_x, e_x = st_x.make_step_fn()(t, y0, dt)
-    np.testing.assert_allclose(np.asarray(yf_p.re), np.asarray(yf_x.re),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(e_p), np.asarray(e_x),
-                               rtol=2e-3, atol=2e-8)
-    assert float(np.asarray(e_x).max()) > 0.0
-
-
-def test_fast_error_lane_packed():
-    """Lane-packed fused loop with fast_error: the err action rides the
-    one-hot group reduction; matches the XLA driver."""
+def test_fast_error_small_dim_ensemble():
+    """2-level f32 ensemble with fast_error on the batched driver matches
+    the generic fast_error stepper on the same operator."""
     lz = LandauZener(v=2.0, delta=0.4)
     mod = lz.modulated(jnp.float32)
     B = 256
@@ -149,17 +133,14 @@ def test_fast_error_lane_packed():
     y0 = cp.from_complex(psi0, jnp.float32)
     ctl = vo.StepControl(rtol=1e-5, max_steps=4000, min_dt=1e-4,
                          max_dt=1.0)
-    grid = jnp.asarray([-20.0, 20.0], jnp.float32)
-    st = vexp.MagnusModulated4(mod, interpret=True, fast_error=True)
-    sol = _run_fused(st, y0, grid, ctl)
-    assert sol is not None
-    assert sol.path == "pallas-loop-persistent-packed"
+    kw = dict(adaptive=True, h0=1e-2, ctl=ctl, time_dtype=jnp.float32)
+    sol = ensemble_solve(
+        None, y0, -20.0, 20.0,
+        stepper=vexp.MagnusModulated4(mod, fast_error=True), **kw)
     oracle = ensemble_solve(
-        mod, y0, -20.0, 20.0,
-        stepper=vexp.MagnusModulated4(mod, use_pallas=False,
-                                      fast_error=True),
-        adaptive=True, h0=1e-2, ctl=ctl, time_dtype=jnp.float32,
-    )
+        lambda t: lz.op_pair(t, jnp.float32), y0, -20.0, 20.0,
+        stepper=vexp.Magnus4(vexp.DenseCplxSplit(), fast_error=True,
+                             batched=False), **kw)
     assert (np.asarray(sol.status) == vo.DONE).all()
     a_f, a_x = np.asarray(sol.n_accept), np.asarray(oracle.n_accept)
     assert (a_f == a_x).mean() > 0.8, (a_f, a_x)
@@ -172,7 +153,7 @@ def test_fast_error_with_weighted_norm():
     """fast_error + a declared WeightedNorm compose: the w2*xf estimate is
     normed by the declaration — exact f64 parity with the generic
     fast_error stepper under the same norm as a driver-applied callable,
-    and the packed loop kernel matches the XLA fallback."""
+    also on a 2-level f32 ensemble."""
     from vec_ode_tpu import lc
 
     model = DrivenDense.make(d=8, seed=0)
@@ -196,7 +177,7 @@ def test_fast_error_with_weighted_norm():
                                np.asarray(sg.y_final.re),
                                rtol=1e-12, atol=1e-12)
 
-    # packed kernel x fast_error x norm vs XLA driver (f32)
+    # batched f32 ensemble x fast_error x norm vs the generic stepper
     lz = LandauZener(v=2.0, delta=0.4)
     modz = lz.modulated(jnp.float32)
     B = 256
@@ -206,16 +187,15 @@ def test_fast_error_with_weighted_norm():
     wnz = lc.WeightedNorm("l2", weights=np.asarray([2.0, 0.5], np.float32))
     ctlz = vo.StepControl(rtol=1e-5, max_steps=4000, min_dt=1e-4,
                           max_dt=1.0)
-    st = vexp.MagnusModulated4(modz, interpret=True, fast_error=True,
-                               norm=wnz)
-    sol = _run_fused(st, y0, jnp.asarray([-20.0, 20.0], jnp.float32), ctlz)
-    assert sol is not None and sol.path.endswith("-packed")
+    kw = dict(adaptive=True, h0=1e-2, ctl=ctlz, time_dtype=jnp.float32)
+    sol = ensemble_solve(
+        None, y0, -20.0, 20.0,
+        stepper=vexp.MagnusModulated4(modz, fast_error=True, norm=wnz), **kw)
     oracle = ensemble_solve(
-        modz, y0, -20.0, 20.0,
-        stepper=vexp.MagnusModulated4(modz, use_pallas=False,
-                                      fast_error=True, norm=wnz),
-        adaptive=True, h0=1e-2, ctl=ctlz, time_dtype=jnp.float32,
-    )
+        lambda t: lz.op_pair(t, jnp.float32), y0, -20.0, 20.0,
+        stepper=vexp.Magnus4(vexp.DenseCplxSplit(), fast_error=True,
+                             batched=False),
+        error_norm=wnz, **kw)
     a_f, a_x = np.asarray(sol.n_accept), np.asarray(oracle.n_accept)
     assert (a_f == a_x).mean() > 0.8, (a_f, a_x)
     np.testing.assert_allclose(np.asarray(sol.y_final.re),

@@ -1,6 +1,4 @@
-"""Execution-path diagnostics: Solution.path + config.warn_on_fallback
-(VERDICT r2 item 4: a batched TPU solve that silently falls back to the XLA
-driver should be observable)."""
+"""Execution-path diagnostics: Solution.path names the driver that ran."""
 
 import warnings
 
@@ -35,8 +33,8 @@ def test_path_survives_pytree_roundtrip_and_vmap():
     assert sol2.path == sol.path
 
 
-def test_modulated_cpu_fallback_path_tag():
-    # on CPU the fused loop/step kernels never engage: path stays xla-driver
+def test_modulated_batched_path_tag():
+    # natively batched modulated stepper: the XLA driver over the batch
     model = DrivenDense.make(d=4, seed=0)
     mod = model.modulated(jnp.float64)
     stepper = vexp.MagnusModulated4(mod)
@@ -49,122 +47,61 @@ def test_modulated_cpu_fallback_path_tag():
     assert bool(jnp.all(sol.success))
 
 
-def test_fused_loop_interpret_path_tag():
-    # interpret=True engages the whole-loop kernel on CPU -> persistent tag
-    model = DrivenDense.make(d=64, seed=0)
-    mod = model.modulated(jnp.float32)
-    stepper = vexp.MagnusModulated4(mod, interpret=True)
-    y0 = jax.tree_util.tree_map(
-        lambda a: a.astype(jnp.float32), _y0(B=16, d=64))
+def test_dense_output_path_tag():
+    # free-running dense output on a batched stepper -> "-dense" suffix
+    model = DrivenDense.make(d=4, seed=0)
+    stepper = vexp.MagnusModulated4(model.modulated(jnp.float64))
     sol = ensemble_solve(
-        None, y0, 0.0, 0.1, stepper=stepper, adaptive=True,
-        ctl=vo.StepControl(rtol=1e-4, max_dt=0.05), h0=1e-2,
-        time_dtype=jnp.float32,
+        None, _y0(), 0.0, 0.2, stepper=stepper, adaptive=True,
+        ctl=vo.StepControl(rtol=1e-6, max_dt=0.1), h0=1e-2,
+        save_at=np.linspace(0.05, 0.15, 3), dense=True,
+        time_dtype=jnp.float64,
     )
-    assert sol.path == "pallas-loop-persistent"
+    assert sol.path == "xla-driver-dense"
+    assert bool(jnp.all(sol.success))
 
 
-def test_warn_on_fallback_names_the_rule():
-    # interpret=True makes the loop kernel reachable on CPU; a save grid
-    # beyond even the WINDOWED persistent cap (1026 points — r5 lifted the
-    # old 34-point register cap via windowed launches) fails eligibility
-    # and should warn when opted in. fused_loop_solve is probed directly:
-    # it returns None on ineligibility without running the XLA fallback.
-    from vec_ode_tpu.driver import make_grid
-
-    model = DrivenDense.make(d=64, seed=0)
-    mod = model.modulated(jnp.float32)
-    stepper = vexp.MagnusModulated4(mod, interpret=True)
-    y0 = jax.tree_util.tree_map(
-        lambda a: a.astype(jnp.float32), _y0(B=16, d=64))
-    save_at = np.linspace(0.01, 0.09, 1060).astype(np.float32)
-    t_grid = make_grid(jnp.float32(0.0), jnp.float32(0.1),
-                       save_at=save_at, dtype=jnp.float32)
-
-    vo.config.warn_on_fallback = True
-    try:
-        with warnings.catch_warnings(record=True) as rec:
-            warnings.simplefilter("always")
-            sol = stepper.fused_loop_solve(
-                y0, t_grid, 1e-2, adaptive=True,
-                ctl=vo.StepControl(rtol=1e-4, max_dt=0.05),
-            )
-        msgs = [str(w.message) for w in rec]
-        assert sol is None
-        assert any("save grid has 1062 points" in m for m in msgs), msgs
-
-        # the old 34-point register cap is gone: the same 42-point grid
-        # that used to warn now keeps the persistent kernel (windowed
-        # launches) with no fallback warning
-        with warnings.catch_warnings(record=True) as rec:
-            warnings.simplefilter("always")
-            sol = ensemble_solve(
-                None, y0, 0.0, 0.1, stepper=stepper, adaptive=True,
-                ctl=vo.StepControl(rtol=1e-4, max_dt=0.05), h0=1e-2,
-                save_at=np.linspace(0.01, 0.09, 40), time_dtype=jnp.float32,
-            )
-        assert not [w for w in rec if "vec_ode" in str(w.message)], (
-            [str(w.message) for w in rec])
-    finally:
-        vo.config.warn_on_fallback = False
-    assert sol.path == "pallas-loop-persistent"
+def test_generic_batched_path_tag():
+    # the generic dense-split stepper's batched executor: same driver tag
+    model = DrivenDense.make(d=4, seed=0)
+    sol = ensemble_solve(
+        lambda t: model.op_pair(t, jnp.float64), _y0(), 0.0, 0.2,
+        stepper=vexp.Magnus4(vexp.DenseCplxSplit()), adaptive=True,
+        ctl=vo.StepControl(rtol=1e-6, max_dt=0.1), h0=1e-2,
+        time_dtype=jnp.float64,
+    )
+    assert sol.path == "xla-driver"
+    assert bool(jnp.all(sol.success))
 
 
-def test_no_warning_when_not_opted_in():
-    model = DrivenDense.make(d=64, seed=0)
-    mod = model.modulated(jnp.float32)
-    stepper = vexp.MagnusModulated4(mod, interpret=True)
-    y0 = jax.tree_util.tree_map(
-        lambda a: a.astype(jnp.float32), _y0(B=16, d=64))
+def test_batched_solve_emits_no_warnings():
+    model = DrivenDense.make(d=4, seed=0)
+    stepper = vexp.MagnusModulated4(model.modulated(jnp.float64))
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         ensemble_solve(
-            None, y0, 0.0, 0.1, stepper=stepper, adaptive=True,
+            None, _y0(), 0.0, 0.1, stepper=stepper, adaptive=True,
             ctl=vo.StepControl(rtol=1e-4, max_dt=0.05), h0=1e-2,
-            save_at=np.linspace(0.01, 0.09, 40), time_dtype=jnp.float32,
+            save_at=np.linspace(0.01, 0.09, 40), time_dtype=jnp.float64,
         )
     assert not [w for w in rec if "vec_ode_tpu" in str(w.message)]
 
 
-def test_warn_on_fallback_events():
-    # r5 contract (VERDICT r4 #3): a TRACEABLE opaque event callable runs
-    # in-kernel — no fallback, no warning; only a genuinely UNtraceable one
-    # pushes the solve off the kernel tier, with the rule named
-    model = DrivenDense.make(d=64, seed=0)
-    mod = model.modulated(jnp.float32)
-    stepper = vexp.MagnusModulated4(mod, interpret=True)
-    y0 = jax.tree_util.tree_map(
-        lambda a: a.astype(jnp.float32), _y0(B=16, d=64))
+def test_traceable_and_untraceable_events():
+    # a TRACEABLE opaque event callable runs on the batched driver; an
+    # UNtraceable one (concretizes a tracer) raises at trace time
+    model = DrivenDense.make(d=4, seed=0)
+    stepper = vexp.MagnusModulated4(model.modulated(jnp.float64))
     kw = dict(stepper=stepper, adaptive=True,
               ctl=vo.StepControl(rtol=1e-4, max_dt=0.05), h0=1e-2,
-              time_dtype=jnp.float32)
-
-    vo.config.warn_on_fallback = True
-    try:
-        with warnings.catch_warnings(record=True) as rec:
-            warnings.simplefilter("always")
-            sol = ensemble_solve(
-                None, y0, 0.0, 0.1,
-                events=vo.Event(lambda t, y: jnp.sum(y.re ** 2) - 2.0),
-                **kw)
-        msgs = [str(w.message) for w in rec]
-        assert not any("events=" in m for m in msgs), msgs
-        assert sol.path == "pallas-loop-persistent"
-
-        # untraceable (concretizes a tracer): the kernel tier warns with
-        # the named rule; the XLA driver cannot trace it either, so the
-        # fallback solve raises at trace time
-        import pytest
-
-        with warnings.catch_warnings(record=True) as rec:
-            warnings.simplefilter("always")
-            with pytest.raises(Exception):
-                ensemble_solve(
-                    None, y0, 0.0, 0.1,
-                    events=vo.Event(
-                        lambda t, y: float(np.asarray(y.re).max())),
-                    **kw)
-        msgs = [str(w.message) for w in rec]
-        assert any("events=" in m for m in msgs), msgs
-    finally:
-        vo.config.warn_on_fallback = False
+              time_dtype=jnp.float64)
+    sol = ensemble_solve(
+        None, _y0(), 0.0, 0.1,
+        events=vo.Event(lambda t, y: jnp.sum(y.re ** 2) - 2.0), **kw)
+    assert sol.path == "xla-driver"
+    assert bool(jnp.all(sol.success))
+    with pytest.raises(Exception):
+        ensemble_solve(
+            None, _y0(), 0.0, 0.1,
+            events=vo.Event(lambda t, y: float(np.asarray(y.re).max())),
+            **kw)

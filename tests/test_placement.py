@@ -1,4 +1,4 @@
-"""Mesh-composable straggler mitigation (VERDICT r2 next-step #7):
+"""Mesh-composable straggler mitigation:
 per-shard efficiency accounting + cost-sorted placement on the 8-device
 CPU mesh with a heterogeneous Landau-Zener sweep."""
 

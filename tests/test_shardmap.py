@@ -1,9 +1,6 @@
-"""shard_map x fused-Pallas-kernel composition (VERDICT r2 missing #2).
-
-The v5e-8 production path is shard_map over the persistent on-chip loop
-kernel; interpret mode executes the real kernel program on the 8-device
-CPU mesh, so the composition is validated without real chips.
-"""
+"""shard_map x natively batched steppers on the 8-device CPU mesh: the
+sharded ensemble must reproduce the unsharded run (trajectories are
+independent, so each shard runs its own driver loop)."""
 
 import jax
 import jax.numpy as jnp
@@ -23,13 +20,13 @@ def _y0(B, d, dtype=jnp.float32, seed=0):
     return cp.from_complex(psi, dtype)
 
 
-def test_fused_loop_kernel_inside_shard_map():
-    """MagnusModulated4's persistent loop kernel executes INSIDE shard_map
-    on the 8-device mesh and matches the unsharded run bitwise-close."""
-    d, B = 64, 64
+def test_modulated_ensemble_inside_shard_map():
+    """MagnusModulated4's batched driver loop runs INSIDE shard_map on the
+    8-device mesh and matches the unsharded run: same step counts, states
+    to f32 rounding."""
+    d, B = 8, 64
     model = DrivenDense.make(d=d, seed=5)
-    stepper = vexp.MagnusModulated4(model.modulated(jnp.float32),
-                                    interpret=True)
+    stepper = vexp.MagnusModulated4(model.modulated(jnp.float32))
     ctl = vo.StepControl(rtol=1e-4, min_dt=1e-5, max_dt=0.2, max_steps=200)
     y0 = _y0(B, d)
     mesh = ensemble_mesh()
@@ -42,7 +39,7 @@ def test_fused_loop_kernel_inside_shard_map():
         )
 
     sol_sh = solve(shard_batch(y0, mesh), mesh)
-    assert sol_sh.path == "pallas-loop-persistent"
+    assert sol_sh.path == "xla-driver"
     assert (np.asarray(sol_sh.status) == vo.DONE).all()
     sol_ref = solve(y0, None)
     np.testing.assert_array_equal(np.asarray(sol_sh.n_accept),
@@ -53,15 +50,12 @@ def test_fused_loop_kernel_inside_shard_map():
                                np.asarray(sol_ref.y_final.im), atol=1e-6)
 
 
-def test_fused_step_kernel_inside_shard_map():
-    """The per-STEP fused chain kernel also composes with shard_map. A
-    traced opaque error_norm keeps the batched XLA driver (the fused LOOP
-    kernel gates off TracedNorm — windowed launches lifted the old
-    40-point save-grid forcing, r5), so the step kernel is what runs."""
-    d, B = 64, 64
+def test_traced_norm_and_saves_inside_shard_map():
+    """A traced opaque error_norm keeps the batched driver, and interior
+    saves round-trip through the sharded driver."""
+    d, B = 8, 64
     model = DrivenDense.make(d=d, seed=6)
-    stepper = vexp.MagnusModulated4(model.modulated(jnp.float32),
-                                    interpret=True)
+    stepper = vexp.MagnusModulated4(model.modulated(jnp.float32))
     ctl = vo.StepControl(rtol=1e-4, min_dt=1e-5, max_dt=0.2, max_steps=200)
     y0 = _y0(B, d, seed=1)
     mesh = ensemble_mesh()
@@ -76,22 +70,20 @@ def test_fused_step_kernel_inside_shard_map():
         )
 
     sol_sh = solve(shard_batch(y0, mesh), mesh)
-    assert sol_sh.path == "xla-driver+pallas-step"
     assert (np.asarray(sol_sh.status) == vo.DONE).all()
     sol_ref = solve(y0, None)
     np.testing.assert_allclose(np.asarray(sol_sh.y_final.re),
                                np.asarray(sol_ref.y_final.re), atol=1e-6)
-    # interior saves round-trip through the sharded driver too
     np.testing.assert_allclose(np.asarray(sol_sh.ys.im),
                                np.asarray(sol_ref.ys.im), atol=1e-6)
 
 
-def test_generic_dense_kernel_inside_shard_map():
-    """The generic per-trajectory dense kernel (ops/pallas_dense.py,
-    opt-in) under shard_map matches its unsharded run."""
-    d, B = 64, 64
+def test_generic_dense_batched_inside_shard_map():
+    """The generic dense-split stepper's batched executor (stacked expm)
+    under shard_map matches its unsharded run."""
+    d, B = 8, 64
     model = DrivenDense.make(d=d, seed=7)
-    stepper = vexp.Magnus4(vexp.DenseCplxSplit(), interpret=True)
+    stepper = vexp.Magnus4(vexp.DenseCplxSplit())
     ctl = vo.StepControl(rtol=1e-4, min_dt=1e-5, max_dt=0.2, max_steps=200)
     y0 = _y0(B, d, seed=2)
     mesh = ensemble_mesh()
@@ -106,5 +98,7 @@ def test_generic_dense_kernel_inside_shard_map():
     sol_sh = solve(shard_batch(y0, mesh), mesh)
     assert (np.asarray(sol_sh.status) == vo.DONE).all()
     sol_ref = solve(y0, None)
+    np.testing.assert_array_equal(np.asarray(sol_sh.n_accept),
+                                  np.asarray(sol_ref.n_accept))
     np.testing.assert_allclose(np.asarray(sol_sh.y_final.re),
                                np.asarray(sol_ref.y_final.re), atol=1e-6)

@@ -77,8 +77,7 @@ def test_mesh_2d_validation():
 
 def test_time_dependent_state_sharded_driven_dense():
     """Driven Hamiltonian (time-dependent A(t)) state-sharded over an
-    8-device mesh matches the unsharded solve to 1e-6 — the capability
-    VERDICT round 1 flagged as missing (constant-A-only sharding)."""
+    8-device mesh matches the unsharded solve to 1e-6 (sharding beyond a constant A)."""
     from vec_ode_tpu.models import DrivenDense
     from vec_ode_tpu.ops import cplx as cp
     from vec_ode_tpu.parallel import (

@@ -1,11 +1,11 @@
-"""Compensated (double-word) time accumulation — VERDICT r3 #4.
+"""Compensated (double-word) time accumulation.
 
 The reference carries t in f64 and accumulates plainly (t += dt,
-/root/reference/src/base/ode.rs:184-188). The TPU path carries t in f32,
+/root/reference/src/base/ode.rs:184-188). An f32 solve carries t in f32,
 where plain accumulation drifts by ~n*eps_f32 over a long solve — every
 A(t) sample shifts. ``StepControl.time_compensated`` (default True) carries
-t as a TwoSum (hi, lo) pair in the driver, the dense-output driver and the
-fused loop kernels, restoring f64-grade time grids in f32.
+t as a TwoSum (hi, lo) pair in the driver and the dense-output driver,
+restoring f64-grade time grids in f32.
 
 Measured baseline (this file pins it): 1e4 fixed f32 steps of h=1e-3 drift
 by ~4e-5 relative under plain accumulation vs <1e-8 compensated.
@@ -45,7 +45,7 @@ def _drift(comp: bool) -> float:
 def test_f32_time_grid_matches_f64_accumulation():
     err_comp = _drift(True)
     err_plain = _drift(False)
-    # VERDICT r3 #4 done-criterion: <1e-6 relative after 1e4 steps
+    # done-criterion: <1e-6 relative after 1e4 steps
     assert err_comp < 1e-6, err_comp
     # sub-ulp in practice (measured 7.4e-9)
     assert err_comp < 5e-8, err_comp
@@ -73,48 +73,50 @@ def test_compensated_off_is_plain_accumulation():
     assert np.float32(float(state.t)) == t_plain
 
 
-def _unreachable_solve(stepper, y0, h, n_steps, use_pallas_time_dtype):
+def _unreachable_solve(stepper, y0, h, n_steps, time_dtype):
     ctl = vo.StepControl(max_steps=n_steps, max_dt=1.0, min_dt=1e-6)
     return ensemble_solve(
         None, y0, 0.0, 1.0e6, stepper=stepper, adaptive=False, h0=h,
-        ctl=ctl, time_dtype=use_pallas_time_dtype,
+        ctl=ctl, time_dtype=time_dtype,
     )
 
 
-def test_loop_kernel_time_compensation_matches_driver_f32():
-    """The fused loop kernel's in-kernel TwoSum must track the XLA driver
-    bitwise AND the exact f64 accumulation over 3000 f32 steps."""
-    model = DrivenDense.make(d=64, seed=0)
+def test_batched_time_compensation_matches_f64_clock():
+    """The batched driver's TwoSum clock over 3000 f32 fixed steps tracks
+    the exact f64 accumulation, and the plain f32 clock of the same solve
+    (time_compensated=False) visibly drifts — the compensation is doing
+    the work."""
+    model = DrivenDense.make(d=8, seed=0)
     mod = model.modulated(jnp.float32)
     rng = np.random.default_rng(3)
-    psi = rng.standard_normal((8, 64)) + 1j * rng.standard_normal((8, 64))
+    psi = rng.standard_normal((8, 8)) + 1j * rng.standard_normal((8, 8))
     psi /= np.linalg.norm(psi, axis=-1, keepdims=True)
     y0 = cp.from_complex(psi, jnp.float32)
     h = np.float32(0.001)
     N = 3000
 
-    s_k = _unreachable_solve(
-        vexp.MidpointModulated(mod, interpret=True), y0, h, N, jnp.float32)
-    s_x = _unreachable_solve(
-        vexp.MidpointModulated(mod, use_pallas=False), y0, h, N,
-        jnp.float32)
-    assert s_k.path == "pallas-loop-persistent", s_k.path
-    assert s_x.path == "xla-driver"
-    # fixed-step: identical step sequences -> identical compensated clocks
-    np.testing.assert_array_equal(np.asarray(s_k.t_final),
-                                  np.asarray(s_x.t_final))
-    n = int(np.asarray(s_k.n_accept)[0])
+    st = vexp.MidpointModulated(mod)
+    s_c = _unreachable_solve(st, y0, h, N, jnp.float32)
+    assert s_c.path == "xla-driver"
+    n = int(np.asarray(s_c.n_accept)[0])
     t_true = n * float(h)
-    rel = np.abs(np.asarray(s_k.t_final, np.float64) - t_true) / t_true
+    rel = np.abs(np.asarray(s_c.t_final, np.float64) - t_true) / t_true
     assert rel.max() < 5e-8, rel.max()
+    s_p = ensemble_solve(
+        None, y0, 0.0, 1.0e6, stepper=st, adaptive=False, h0=h,
+        ctl=vo.StepControl(max_steps=N, max_dt=1.0, min_dt=1e-6,
+                           time_compensated=False),
+        time_dtype=jnp.float32)
+    rel_p = np.abs(np.asarray(s_p.t_final, np.float64) - t_true) / t_true
+    assert rel_p.max() > 10 * rel.max(), (rel_p.max(), rel.max())
 
 
-def test_lane_packed_time_compensation():
-    """Packed carry columns (G = 128/D trajectories per row) carry their own
-    compensated clocks."""
+def test_small_dim_ensemble_time_compensation():
+    """A large 2-level ensemble (one compensated clock per trajectory)
+    starting away from zero keeps every clock at the ulp floor."""
     lz = LandauZener(v=2.0, delta=0.4)
     mod = lz.modulated(jnp.float32)
-    B = 512  # G = 128/2 = 64 trajectories/row; 8 packed rows = min tile
+    B = 512
     psi0 = np.zeros((B, 2), np.complex64)
     psi0[:, 0] = 1.0
     y0 = cp.from_complex(psi0, jnp.float32)
@@ -123,14 +125,13 @@ def test_lane_packed_time_compensation():
 
     ctl = vo.StepControl(max_steps=N, max_dt=1.0, min_dt=1e-6)
     s_k = ensemble_solve(
-        mod, y0, -20.0, 1.0e6, stepper=vexp.MidpointModulated(
-            mod, interpret=True),
+        mod, y0, -20.0, 1.0e6, stepper=vexp.MidpointModulated(mod),
         adaptive=False, h0=h, ctl=ctl, time_dtype=jnp.float32,
     )
-    assert s_k.path.endswith("-packed"), s_k.path
     n = int(np.asarray(s_k.n_accept)[0])
     t_true = -20.0 + n * float(h)
     rel = np.abs(np.asarray(s_k.t_final, np.float64) - t_true) / abs(t_true)
     # plain f32 accumulation from -20 with h=0.01 drifts ~1e-5 by n=2000;
-    # the packed compensated clock stays at the ulp floor
+    # the compensated clocks stay at the ulp floor
     assert rel.max() < 2e-7, rel.max()
+

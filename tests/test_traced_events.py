@@ -1,246 +1,214 @@
-"""Traced event callables run IN-KERNEL on the fused loop (VERDICT r4 #3,
-events half).
+"""Traced (plain-jnp) event callables on the batched drivers.
 
-A declared observable (LinearObservable/QuadraticObservable) always ran
-in-kernel; an opaque callable used to force the XLA driver. Now
-events._kernel_spec probes the callable with jax.eval_shape on a
-per-trajectory (t, state) abstract and, when it traces to a scalar,
-executes it inside the kernel by vmapping over the (TILE, D) tile rows
-("traced" events). Untraceable callables and lane-packed configs keep the
-XLA-driver fallback (Mosaic cannot unpack a packed row without a 3-D
-reshape).
+A declared observable (LinearObservable/QuadraticObservable) and a
+hand-written jnp callable g(t, x) are both evaluated per trajectory by
+``EventConfig.evaluate`` (vmapped over the batch) inside the batched XLA
+driver. Untraceable callables (ones that concretize a tracer) cannot run
+under jit and raise.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import vec_ode_tpu as vo
 from vec_ode_tpu import exp as vexp
-from vec_ode_tpu.driver import integrate, make_grid
 from vec_ode_tpu.events import (Event, EventConfig, LinearObservable,
-                                QuadraticObservable, _kernel_spec)
+                                QuadraticObservable)
 from vec_ode_tpu.models import DrivenDense, LandauZener
 from vec_ode_tpu.ops import cplx as cp
 from vec_ode_tpu.parallel import ensemble_solve
 
 
-def _driven64(B=16, seed=21):
-    model = DrivenDense.make(d=64, seed=0)
-    mod = model.modulated(jnp.float32)
+def _driven(B=6, seed=21, d=8):
+    model = DrivenDense.make(d=d, seed=0)
+    mod = model.modulated(jnp.float64)
     rng = np.random.default_rng(seed)
-    z = rng.standard_normal((B, 64)) + 1j * rng.standard_normal((B, 64))
+    z = rng.standard_normal((B, d)) + 1j * rng.standard_normal((B, d))
     z /= np.linalg.norm(z, axis=-1, keepdims=True)
-    return mod, cp.from_complex(z, jnp.float32)
+    return model, mod, cp.from_complex(z, jnp.float64)
 
 
-def _run_fused(stepper, y0, grid, ctl, ev, adaptive=True):
-    orig = jax.default_backend
-    try:
-        jax.default_backend = lambda: "tpu"
-        return stepper.fused_loop_solve(y0, grid, 1e-2, ctl=ctl,
-                                        adaptive=adaptive, events=ev)
-    finally:
-        jax.default_backend = orig
+CTL = vo.StepControl(rtol=1e-8, min_dt=1e-6, max_dt=0.2, max_steps=2000)
 
 
-CTL64 = vo.StepControl(rtol=1e-4, min_dt=1e-6, max_dt=0.2, max_steps=2000)
+def _per_trajectory(mod, y0, tf, ev, b):
+    return vo.solve_linear(
+        None, 0.0, tf, cp.Cplx(y0.re[b], y0.im[b]),
+        stepper=vexp.MagnusModulated4(mod), adaptive=True, h0=1e-2,
+        ctl=CTL, events=ev)
 
 
-# ------------------------------------------------------------- spec --
+# ------------------------------------------------------------ evaluate --
 
 
-def test_kernel_spec_traces_plain_jnp_callable():
+def test_evaluate_batched_matches_per_trajectory_calls():
     fn = lambda t, x: x.re[3] - 0.1 * t
-    spec = _kernel_spec(
-        EventConfig(events=(Event(fn),)), 64, 2, dtype=jnp.float32)
-    assert spec is not None and spec.kinds == ("traced",)
-    assert spec.any_traced
-    # the block evaluator reproduces the callable row-wise
-    rng = np.random.default_rng(0)
-    y = jnp.asarray(rng.standard_normal((8, 128)), jnp.float32)
-    t = jnp.full((8, 1), 0.5, jnp.float32)
-    got = np.asarray(spec.traced[0](t, y))
-    want = np.asarray(y)[:, 3] - 0.05
-    np.testing.assert_allclose(got[:, 0], want, rtol=1e-6)
+    cfg = EventConfig(events=(Event(fn),))
+    _, _, y = _driven()
+    t = jnp.asarray(np.linspace(0.0, 1.0, 6))
+    got = np.asarray(cfg.evaluate(t, y))
+    assert got.shape == (6, 1)
+    want = np.asarray(y.re)[:, 3] - 0.1 * np.asarray(t)
+    np.testing.assert_allclose(got[:, 0], want, rtol=1e-14)
 
 
-def test_kernel_spec_rejects_untraceable():
+def test_untraceable_event_raises():
     fn = lambda t, x: float(np.asarray(x.re).max())  # concretizes
-    spec = _kernel_spec(
-        EventConfig(events=(Event(fn),)), 64, 2, dtype=jnp.float32)
-    assert spec is None
+    _, mod, y0 = _driven()
+    with pytest.raises(Exception):
+        ensemble_solve(mod, y0, 0.0, 0.5, stepper=vexp.MagnusModulated4(mod),
+                       adaptive=True, h0=1e-2, ctl=CTL,
+                       events=EventConfig(events=(Event(fn),)))
 
 
-def test_kernel_spec_mixes_declared_and_traced():
-    w = np.zeros(128)
+def test_evaluate_mixes_declared_and_traced():
+    w = np.zeros(16)
     w[3] = 1.0
     fn = lambda t, x: jnp.sum(x.re ** 2 + x.im ** 2) - 0.5
-    spec = _kernel_spec(
-        EventConfig(events=(Event(LinearObservable(w=w)), Event(fn))),
-        64, 2, dtype=jnp.float32)
-    assert spec is not None
-    assert spec.kinds == ("lin", "traced")
-    assert spec.traced[0] is None and spec.traced[1] is not None
+    cfg = EventConfig(events=(Event(LinearObservable(w=w)), Event(fn)))
+    _, _, y = _driven()
+    got = np.asarray(cfg.evaluate(jnp.zeros(6), y))
+    np.testing.assert_allclose(got[:, 0], np.asarray(y.re)[:, 3],
+                               rtol=1e-14)
+    np.testing.assert_allclose(got[:, 1], 0.5, atol=1e-14)
 
 
-# ------------------------------------------------ fused loop parity --
+# ------------------------------------------------- batched vs alone --
 
 
-def test_traced_event_keeps_persistent_path_and_matches_xla():
-    """The VERDICT r4 #3 done-criterion: a hand-written jnp event fn keeps
-    path=pallas-loop-persistent; located times/states match the XLA driver
-    running the SAME callable."""
-    mod, y0 = _driven64()
+def test_traced_event_matches_per_trajectory():
+    """A hand-written jnp event fn on the batched driver locates the same
+    crossings (found mask, times, states) as each trajectory solved
+    alone with the same callable (f64)."""
+    _, mod, y0 = _driven()
     fn = lambda t, x: x.re[3]          # Re z_3 crossing zero
-    ev = EventConfig(events=(Event(fn),), t_tol=1e-5)
-    grid = make_grid(jnp.float32(0.0), jnp.float32(0.5), dtype=jnp.float32)
-    st = vexp.MagnusModulated4(mod, interpret=True)
-    sol = _run_fused(st, y0, grid, CTL64, ev)
-    assert sol is not None and sol.path == "pallas-loop-persistent"
-
-    st_x = vexp.MagnusModulated4(mod, use_pallas=False)
-    sol_x = integrate(
-        st_x.make_step_fn(), y0, grid, 1e-2, adaptive=True, ctl=CTL64,
-        error_norm=st_x.error_norm, batch_shape=(y0.re.shape[0],),
-        event_cfg=ev,
-    )
-    f_f, f_x = np.asarray(sol.event_found), np.asarray(sol_x.event_found)
-    np.testing.assert_array_equal(f_f, f_x)
-    m = f_f[:, 0]
-    assert m.any()
-    np.testing.assert_allclose(np.asarray(sol.event_t)[m],
-                               np.asarray(sol_x.event_t)[m], atol=1e-5)
-    np.testing.assert_allclose(np.asarray(sol.event_y.re)[m],
-                               np.asarray(sol_x.event_y.re)[m], atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(sol.n_accept),
-                                  np.asarray(sol_x.n_accept))
+    ev = EventConfig(events=(Event(fn),), t_tol=1e-10)
+    sol = ensemble_solve(mod, y0, 0.0, 4.0,
+                         stepper=vexp.MagnusModulated4(mod), adaptive=True,
+                         h0=1e-2, ctl=CTL, events=ev)
+    found = np.asarray(sol.event_found)[:, 0]
+    assert found.any()
+    for b in range(y0.re.shape[0]):
+        one = _per_trajectory(mod, y0, 4.0, ev, b)
+        assert bool(one.event_found[0]) == bool(found[b])
+        assert int(one.n_accept) == int(sol.n_accept[b])
+        if found[b]:
+            np.testing.assert_allclose(float(sol.event_t[b, 0]),
+                                       float(one.event_t[0]), atol=1e-9)
+            np.testing.assert_allclose(np.asarray(sol.event_y.re[b, 0]),
+                                       np.asarray(one.event_y.re[0]),
+                                       atol=1e-9)
 
 
 def test_traced_event_matches_declared_equivalent():
     """A traced |z_1|^2 - c IS QuadraticObservable written by hand: both
-    kernel runs must locate identical event times (the traced evaluation
-    and the one-hot row reduction compute the same g)."""
-    mod, y0 = _driven64(seed=33)
+    runs must locate identical event times."""
+    _, mod, y0 = _driven(seed=33)
     c = 0.04
     fn = lambda t, x: x.re[1] ** 2 + x.im[1] ** 2 - c
-    obs = QuadraticObservable(q=np.eye(64)[1], c=c)
-    grid = make_grid(jnp.float32(0.0), jnp.float32(0.5), dtype=jnp.float32)
-    st = vexp.MagnusModulated4(mod, interpret=True)
-    sol_t = _run_fused(st, y0, grid, CTL64,
-                       EventConfig(events=(Event(fn, direction=1),),
-                                   t_tol=1e-5))
-    sol_d = _run_fused(st, y0, grid, CTL64,
-                       EventConfig(events=(Event(obs, direction=1),),
-                                   t_tol=1e-5))
-    assert sol_t is not None and sol_d is not None
+    obs = QuadraticObservable(q=np.eye(8)[1], c=c)
+    kw = dict(stepper=vexp.MagnusModulated4(mod), adaptive=True, h0=1e-2,
+              ctl=CTL)
+    sol_t = ensemble_solve(mod, y0, 0.0, 1.0, events=EventConfig(
+        events=(Event(fn, direction=1),), t_tol=1e-10), **kw)
+    sol_d = ensemble_solve(mod, y0, 0.0, 1.0, events=EventConfig(
+        events=(Event(obs, direction=1),), t_tol=1e-10), **kw)
     np.testing.assert_array_equal(np.asarray(sol_t.event_found),
                                   np.asarray(sol_d.event_found))
     m = np.asarray(sol_t.event_found)[:, 0]
     np.testing.assert_allclose(np.asarray(sol_t.event_t)[m],
-                               np.asarray(sol_d.event_t)[m], atol=1e-6)
+                               np.asarray(sol_d.event_t)[m], atol=1e-12)
 
 
 def test_traced_terminal_event_time_dependent():
     """g depends on t too (the full g(t, x) contract): a time-shifted
-    threshold terminates each trajectory, kernel vs XLA driver."""
-    mod, y0 = _driven64(seed=5)
-    # unitary evolution keeps sum|z|^2 == 1, so g ~ 0.2 t - 0.1 crosses
-    # zero (rising) at t ~ 0.5 — but only through the state-dependent term
+    threshold terminates each trajectory; unitary evolution keeps
+    sum|z|^2 == 1, so g = 0.2 t - 0.1 crosses zero (rising) at t = 0.5,
+    reached only through the state-dependent term."""
+    _, mod, y0 = _driven(seed=5)
     fn = lambda t, x: jnp.sum(x.re ** 2 + x.im ** 2) * 0.2 * t - 0.1
     ev = EventConfig(events=(Event(fn, direction=1, terminal=True),),
-                     t_tol=1e-5)
-    grid = make_grid(jnp.float32(0.0), jnp.float32(1.0), dtype=jnp.float32)
-    st = vexp.MagnusModulated4(mod, interpret=True)
-    sol = _run_fused(st, y0, grid, CTL64, ev)
-    assert sol is not None and sol.path == "pallas-loop-persistent"
+                     t_tol=1e-10)
+    sol = ensemble_solve(mod, y0, 0.0, 1.0,
+                         stepper=vexp.MagnusModulated4(mod), adaptive=True,
+                         h0=1e-2, ctl=CTL, events=ev)
     assert (np.asarray(sol.status) == vo.DONE_EVENT).all()
-
-    sol_x = ensemble_solve(
-        mod, y0, 0.0, 1.0,
-        stepper=vexp.MagnusModulated4(mod, use_pallas=False),
-        adaptive=True, h0=1e-2, ctl=CTL64, time_dtype=jnp.float32,
-        events=ev,
-    )
-    np.testing.assert_allclose(np.asarray(sol.event_t),
-                               np.asarray(sol_x.event_t), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(sol.event_t)[:, 0], 0.5,
+                               atol=1e-8)
 
 
-def test_rk_loop_traced_event(monkeypatch):
-    """The fused RK loop runs traced events too."""
-    from vec_ode_tpu.ops import pallas_loop
-    from vec_ode_tpu.ops.pallas_rk import FusedModulatedLinearRK
+def test_rk_stepper_traced_event():
+    """The natively batched RK stepper runs traced events too: it locates
+    the same crossings as the generic RungeKutta stepper per trajectory
+    on the same pair RHS (f64)."""
+    from vec_ode_tpu.ops.modulated_rk import FusedModulatedLinearRK
 
-    model = DrivenDense.make(d=64, seed=0)
-    _, y0 = _driven64(seed=41)
-    ctl = vo.StepControl(rtol=1e-4, min_dt=1e-6, max_dt=0.25,
-                         max_steps=2000)
-    t_grid = make_grid(jnp.float32(0), jnp.float32(0.5), dtype=jnp.float32)
+    model, _, y0 = _driven(seed=41)
     fn = lambda t, x: x.re[3]
-    ev = EventConfig(events=(Event(fn),), t_tol=1e-5)
-    st = FusedModulatedLinearRK.from_driven_dense(model, jnp.float32)
-    orig_chunk = pallas_loop.fused_loop_chunk
-
-    def chunk_interp(*args, **kw):
-        kw["interpret"] = True
-        kw["tile"] = 8
-        return orig_chunk(*args, **kw)
-
-    monkeypatch.setattr(pallas_loop, "fused_loop_chunk", chunk_interp)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    sol_f = st.fused_loop_solve(y0, t_grid, 1e-2, ctl=ctl, adaptive=True,
-                                events=ev)
-    assert sol_f is not None, "fused RK loop declined a traced event"
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    sol_x = integrate(
-        st.make_step_fn(), y0, t_grid, 1e-2, adaptive=True, ctl=ctl,
-        error_norm=st.error_norm, batch_shape=(y0.re.shape[0],),
-        event_cfg=ev,
-    )
-    f_f = np.asarray(sol_f.event_found)
-    np.testing.assert_array_equal(f_f, np.asarray(sol_x.event_found))
-    m = f_f[:, 0]
+    ev = EventConfig(events=(Event(fn),), t_tol=1e-10)
+    kw = dict(adaptive=True, h0=1e-2, ctl=CTL, time_dtype=jnp.float64,
+              events=ev)
+    sol_b = ensemble_solve(
+        None, y0, 0.0, 4.0,
+        stepper=FusedModulatedLinearRK.from_driven_dense(model,
+                                                         jnp.float64),
+        **kw)
+    sol_g = ensemble_solve(
+        lambda t, y: model.rhs_pair(t, y, jnp.float64), y0, 0.0, 4.0,
+        stepper=vo.RungeKutta(vo.RKF45), **kw)
+    f_b = np.asarray(sol_b.event_found)
+    np.testing.assert_array_equal(f_b, np.asarray(sol_g.event_found))
+    m = f_b[:, 0]
     assert m.any()
-    np.testing.assert_allclose(np.asarray(sol_f.event_t)[m],
-                               np.asarray(sol_x.event_t)[m], atol=1e-5)
+    np.testing.assert_allclose(np.asarray(sol_b.event_t)[m],
+                               np.asarray(sol_g.event_t)[m], atol=1e-9)
 
 
-# ------------------------------------------------------- fallbacks --
-
-
-def test_traced_event_lane_packed_falls_back():
-    """Lane-packed configs (d=2 LZ, G=64) cannot unpack rows in-kernel:
-    fused_loop_solve declines a traced event (named fallback) and the XLA
-    driver runs it with identical semantics."""
+def test_traced_terminal_event_small_dim_ensemble():
+    """2-level f32 ensemble, terminal traced event: every trajectory ends
+    DONE_EVENT at the time a single f64 solve of the same trajectory
+    locates (the population crosses 0.05 with a clear slope)."""
     lz = LandauZener(v=2.0, delta=0.4)
-    mod = lz.modulated(jnp.float32)
     psi0 = np.zeros((64, 2), np.complex64)
     psi0[:, 0] = 1.0
-    y0 = cp.from_complex(psi0, jnp.float32)
     fn = lambda t, x: x.re[1] ** 2 + x.im[1] ** 2 - 0.05
     ev = EventConfig(events=(Event(fn, direction=1, terminal=True),),
                      t_tol=1e-4)
     ctl = vo.StepControl(rtol=1e-5, max_steps=4000, min_dt=1e-4, max_dt=1.0)
-    st = vexp.MagnusModulated4(mod, interpret=True)
-    sol = _run_fused(st, y0, jnp.asarray([-20.0, 20.0], jnp.float32),
-                     ctl, ev)
-    assert sol is None
-    sol2 = ensemble_solve(
-        mod, y0, -20.0, 20.0, stepper=st, adaptive=True, h0=1e-2,
+    mod32 = lz.modulated(jnp.float32)
+    sol = ensemble_solve(
+        mod32, cp.from_complex(psi0, jnp.float32), -20.0, 20.0,
+        stepper=vexp.MagnusModulated4(mod32), adaptive=True, h0=1e-2,
         ctl=ctl, time_dtype=jnp.float32, events=ev,
     )
-    assert (np.asarray(sol2.status) == vo.DONE_EVENT).all()
+    assert (np.asarray(sol.status) == vo.DONE_EVENT).all()
+    mod64 = lz.modulated(jnp.float64)
+    one = vo.solve_linear(
+        None, -20.0, 20.0, cp.from_complex(psi0[0], jnp.float64),
+        stepper=vexp.MagnusModulated4(mod64), adaptive=True, h0=1e-2,
+        ctl=vo.StepControl(rtol=1e-10, max_steps=40000, min_dt=1e-6,
+                           max_dt=0.2),
+        events=EventConfig(events=(Event(fn, direction=1, terminal=True),),
+                           t_tol=1e-9))
+    assert int(one.status) == vo.DONE_EVENT
+    np.testing.assert_allclose(np.asarray(sol.event_t)[:, 0],
+                               float(one.event_t[0]), atol=2e-3)
 
 
-def test_untraceable_event_falls_back():
-    mod, y0 = _driven64()
+def test_traced_event_direction_filter():
+    """direction=0 locates the earlier of the first rising and the first
+    falling crossing of the same traced g."""
+    _, mod, y0 = _driven(seed=17)
+    fn = lambda t, x: x.re[2]
+    kw = dict(stepper=vexp.MagnusModulated4(mod), adaptive=True, h0=1e-2,
+              ctl=CTL)
 
-    def bad(t, x):
-        return float(np.asarray(x.re).max())  # concretizes under tracing
+    def first(direction):
+        sol = ensemble_solve(mod, y0, 0.0, 4.0, events=EventConfig(
+            events=(Event(fn, direction=direction),), t_tol=1e-10), **kw)
+        return np.asarray(sol.event_t)[:, 0]
 
-    ev = EventConfig(events=(Event(bad),), t_tol=1e-5)
-    grid = make_grid(jnp.float32(0.0), jnp.float32(0.5), dtype=jnp.float32)
-    st = vexp.MagnusModulated4(mod, interpret=True)
-    sol = _run_fused(st, y0, grid, CTL64, ev)
-    assert sol is None
+    t_any, t_up, t_down = first(0), first(1), first(-1)
+    assert np.isfinite(t_any).any()
+    np.testing.assert_allclose(t_any, np.minimum(t_up, t_down), atol=1e-9)

@@ -1,5 +1,5 @@
 """Trace, don't declare: opaque-but-traceable error_norm callables keep
-the batched tier (VERDICT r4 #3).
+the batched tier.
 
 The reference's NormFn is an arbitrary closure
 (/root/reference/src/exp/cfm.rs:131-155). A declared lc.WeightedNorm runs
@@ -7,9 +7,8 @@ natively on every tier (test_weighted_norm.py); these tests pin the rest
 of the traceable space: a hand-written jnp norm passed as error_norm=
 is probed with jax.eval_shape and, when it traces to a scalar, promoted
 to lc.TracedNorm — norm-returning batched steppers apply it to the
-batched error vector on the XLA executor (Pallas kernels gate off it and
-fall back), vector-returning steppers get it vmapped into the driver's
-reducer. Genuinely untraceable callables keep the legacy
+batched error vector, vector-returning steppers get it vmapped into the
+driver's reducer. Genuinely untraceable callables keep the legacy
 drop-to-vmapped/raise behavior.
 """
 
@@ -175,7 +174,7 @@ def test_traced_norm_modulated_stepper():
     y0 = _psi0(8, B=4, seed=7)
     sol_m = ensemble_solve(
         mod, y0, 0.0, 1.0,
-        stepper=vexp.MagnusModulated4(mod, use_pallas=False),
+        stepper=vexp.MagnusModulated4(mod),
         error_norm=_my_norm, adaptive=True, h0=1e-2, ctl=CTL,
     )
     sol_g = ensemble_solve(
@@ -190,56 +189,47 @@ def test_traced_norm_modulated_stepper():
                                rtol=1e-8, atol=1e-8)
 
 
-def test_traced_norm_per_step_kernel_falls_through():
-    """interpret-mode per-step Pallas kernels gate off the traced norm and
-    the XLA step applies it — same result as use_pallas=False."""
-    model = DrivenDense.make(d=64, seed=0)
+def test_traced_plain_l2_matches_default_norm():
+    """A hand-written plain l2 norm, traced into the batched modulated
+    stepper, reproduces the stepper's built-in l2 norm: same step
+    sequences, same states (f32)."""
+    model = DrivenDense.make(d=8, seed=0)
     mod = model.modulated(jnp.float32)
-    y0 = _psi0(64, B=8, seed=13, dtype=jnp.float32)
+    y0 = _psi0(8, B=8, seed=13, dtype=jnp.float32)
 
-    def norm64(err):
+    def norm_l2(err):
         return jnp.sqrt(jnp.sum(err.re ** 2) + jnp.sum(err.im ** 2)
                         + 0.0)  # plain l2, hand-written
 
     ctl = vo.StepControl(rtol=1e-4, min_dt=1e-5, max_dt=0.2, max_steps=500)
-    sol_p = ensemble_solve(
-        mod, y0, 0.0, 0.5,
-        stepper=vexp.MagnusModulated4(mod, interpret=True),
-        error_norm=norm64, adaptive=True, h0=1e-2, ctl=ctl,
-        time_dtype=jnp.float32,
-    )
-    sol_x = ensemble_solve(
-        mod, y0, 0.0, 0.5,
-        stepper=vexp.MagnusModulated4(mod, use_pallas=False),
-        error_norm=norm64, adaptive=True, h0=1e-2, ctl=ctl,
-        time_dtype=jnp.float32,
-    )
-    np.testing.assert_array_equal(np.asarray(sol_p.n_accept),
-                                  np.asarray(sol_x.n_accept))
-    np.testing.assert_allclose(np.asarray(sol_p.y_final.re),
-                               np.asarray(sol_x.y_final.re),
+    kw = dict(adaptive=True, h0=1e-2, ctl=ctl, time_dtype=jnp.float32)
+    sol_t = ensemble_solve(mod, y0, 0.0, 0.5,
+                           stepper=vexp.MagnusModulated4(mod),
+                           error_norm=norm_l2, **kw)
+    sol_d = ensemble_solve(mod, y0, 0.0, 0.5,
+                           stepper=vexp.MagnusModulated4(mod), **kw)
+    np.testing.assert_array_equal(np.asarray(sol_t.n_accept),
+                                  np.asarray(sol_d.n_accept))
+    np.testing.assert_allclose(np.asarray(sol_t.y_final.re),
+                               np.asarray(sol_d.y_final.re),
                                rtol=1e-6, atol=1e-6)
 
 
-def test_fused_loop_declines_traced_norm():
-    """The whole-loop kernel cannot run a Python callable: with a
-    TracedNorm installed, fused_loop_solve returns None (named fallback)
-    so the dispatcher's batched XLA driver applies the norm."""
-    model = DrivenDense.make(d=64, seed=0)
-    mod = model.modulated(jnp.float32)
-    y0 = _psi0(64, B=16, seed=21, dtype=jnp.float32)
-    tn = lc.TracedNorm(lambda e: jnp.sqrt(jnp.sum(e.re ** 2)
-                                          + jnp.sum(e.im ** 2)))
-    st = vexp.MagnusModulated4(mod, interpret=True, norm=tn)
-    ctl = vo.StepControl(rtol=1e-4, min_dt=1e-5, max_dt=0.2, max_steps=500)
-    t_grid = jnp.asarray([0.0, 0.5], jnp.float32)
-    orig = jax.default_backend
-    try:
-        jax.default_backend = lambda: "tpu"
-        sol = st.fused_loop_solve(y0, t_grid, 1e-2, ctl=ctl, adaptive=True)
-    finally:
-        jax.default_backend = orig
-    assert sol is None
+def test_fused_rk_stepper_rejects_traced_norm():
+    """FusedModulatedLinearRK executes only DECLARED norms (its step
+    lays the weights out over the widened batch): an opaque callable is
+    installed as a TracedNorm and refused with a named error."""
+    from vec_ode_tpu.ops.modulated_rk import FusedModulatedLinearRK
+
+    model = DrivenDense.make(d=8, seed=0)
+    st = FusedModulatedLinearRK.from_driven_dense(model, jnp.float64)
+    y0 = _psi0(8, B=4, seed=21)
+    with pytest.raises(TypeError, match="DECLARED"):
+        ensemble_solve(
+            None, y0, 0.0, 0.5, stepper=st, adaptive=True, h0=1e-2,
+            error_norm=lambda e: jnp.sqrt(jnp.sum(e.re ** 2)
+                                          + jnp.sum(e.im ** 2)),
+            ctl=vo.StepControl(rtol=1e-4, max_dt=0.2))
 
 
 # ----------------------------------------------- untraceable fallback --

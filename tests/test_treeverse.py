@@ -1,4 +1,4 @@
-"""Checkpointed (treeverse-style) gradients for NONLINEAR RHS — VERDICT r3 #5.
+"""Checkpointed (treeverse-style) gradients for NONLINEAR RHS.
 
 Two pieces close the last adjoint gap (PARITY.md "Known gaps"):
 

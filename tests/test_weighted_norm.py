@@ -3,9 +3,8 @@
 The reference's ExpCFMSolver takes an arbitrary user NormFn
 (/root/reference/src/exp/cfm.rs:131-155) that the driver applies to the
 embedded error estimate. Here the same capability must not knock batched
-steppers off their fast paths (VERDICT r3 #8): a declared weighted
-l2/rms/max norm runs inside the per-step Pallas kernel, the fused loop
-kernel, lane packing included, with semantics pinned to the vmapped
+steppers off their batched tier: a declared weighted l2/rms/max norm runs
+inside the batched steps, with semantics pinned to the vmapped
 custom-callable tier.
 """
 
@@ -74,13 +73,11 @@ def test_weighted_norm_kernel_parts():
     row, post, kind = WeightedNorm("rms").kernel_parts(d, 2)
     assert row is None and kind == "l2"
     np.testing.assert_allclose(post, 1.0 / np.sqrt(8))
-    # per-component weights tile across parts and groups
+    # per-component weights tile across the re/im parts
     w = np.arange(1.0, 5.0)
-    row, post, kind = WeightedNorm("max", weights=w).kernel_parts(
-        d, 2, group=3)
-    assert kind == "max" and post == 1.0 and row.shape == (1, 24)
-    np.testing.assert_array_equal(row[0, :8], np.concatenate([w, w]))
-    np.testing.assert_array_equal(row[0, 8:16], row[0, :8])
+    row, post, kind = WeightedNorm("max", weights=w).kernel_parts(d, 2)
+    assert kind == "max" and post == 1.0 and row.shape == (1, 8)
+    np.testing.assert_array_equal(row[0], np.concatenate([w, w]))
     # pytree / wrong-length weights cannot be laid out
     assert WeightedNorm("l2", weights={"a": w}).kernel_parts(d, 2) is None
     assert WeightedNorm("l2", weights=w[:2]).kernel_parts(d, 2) is None
@@ -105,7 +102,7 @@ def _psi0(d, B=None, seed=0, dtype=jnp.float64):
 
 
 def test_declared_norm_matches_reference_normfn_semantics():
-    """The VERDICT #8 pin: CFM4 with a declared WeightedNorm (modulated
+    """CFM4 with a declared WeightedNorm (modulated
     fast path) reproduces the generic dense-split CFM4 run with the SAME
     norm passed as a driver-applied error_norm callable — the reference's
     NormFn contract (cfm.rs:131-155) — step sequence and all (f64)."""
@@ -152,129 +149,80 @@ def test_declared_norm_kinds_match_normfn(kind):
                                rtol=1e-8, atol=1e-8)
 
 
-# ----------------------------------------------- fused loop kernel --
+# ------------------------------------------------- batched ensembles --
 
 
-def _run_fused(stepper, y0, t_grid, ctl, adaptive=True):
-    orig = jax.default_backend
-    try:
-        jax.default_backend = lambda: "tpu"
-        return stepper.fused_loop_solve(y0, t_grid, 1e-2, ctl=ctl,
-                                        adaptive=adaptive)
-    finally:
-        jax.default_backend = orig
+def _batched_vs_generic(st_b, st_g, wn, y0, op_fn, t0, tf, ctl, dtype):
+    kw = dict(adaptive=True, h0=1e-2, ctl=ctl, time_dtype=dtype)
+    sol_b = ensemble_solve(None, y0, t0, tf, stepper=st_b, **kw)
+    sol_g = ensemble_solve(op_fn, y0, t0, tf, stepper=st_g, error_norm=wn,
+                           **kw)
+    assert (np.asarray(sol_b.status) == vo.DONE).all()
+    return sol_b, sol_g
 
 
-def test_fused_loop_weighted_norm_matches_xla_driver():
-    """CFM4 with a weighted norm STAYS on pallas-loop-persistent (the
-    VERDICT #8 done-criterion) and matches the XLA driver applying the
-    same declared norm."""
-    model = DrivenDense.make(d=64, seed=0)
-    mod = model.modulated(jnp.float32)
-    y0 = _psi0(64, B=16, seed=21, dtype=jnp.float32)
-    from vec_ode_tpu.driver import integrate, make_grid
-
-    t_grid = make_grid(jnp.float32(0.0), jnp.float32(0.5),
-                       dtype=jnp.float32)
-    w = np.linspace(0.5, 2.0, 64).astype(np.float32)
-    wn = WeightedNorm("l2", weights=w)
-    ctl = vo.StepControl(rtol=1e-4, min_dt=1e-5, max_dt=0.2, max_steps=500)
-
-    st_f = vexp.CFM4Modulated(mod, interpret=True, norm=wn)
-    sol_f = _run_fused(st_f, y0, t_grid, ctl)
-    assert sol_f is not None, "fused loop did not engage with norm="
-    assert sol_f.path.startswith("pallas-loop")
-
-    st_x = vexp.CFM4Modulated(mod, use_pallas=False, norm=wn)
-    sol_x = integrate(
-        st_x.make_step_fn(), y0, t_grid, 1e-2, adaptive=True, ctl=ctl,
-        error_norm=st_x.error_norm, batch_shape=(y0.re.shape[0],),
-    )
-    assert (np.asarray(sol_f.status) == vo.DONE).all()
-    a_f, a_x = np.asarray(sol_f.n_accept), np.asarray(sol_x.n_accept)
-    assert (a_f == a_x).mean() > 0.8, (a_f, a_x)
-    np.testing.assert_allclose(np.asarray(sol_f.y_final.re),
-                               np.asarray(sol_x.y_final.re),
-                               rtol=1e-4, atol=1e-4)
+def test_batched_weighted_norm_matches_generic():
+    """CFM4 with a weighted norm on the batched driver matches the
+    generic dense-split CFM4 solved per trajectory with the same norm as
+    a driver-applied callable (f64): step sequences and states."""
+    _, mod, op_fn = _driven()
+    y0 = _psi0(8, B=6, seed=21)
+    wn = WeightedNorm("l2", weights=np.linspace(0.5, 2.0, 8))
+    ctl = vo.StepControl(rtol=1e-6, min_dt=1e-5, max_dt=0.2, max_steps=500)
+    sol_b, sol_g = _batched_vs_generic(
+        vexp.CFM4Modulated(mod, norm=wn),
+        vexp.CFM4(vexp.DenseCplxSplit(), batched=False), wn, y0, op_fn,
+        0.0, 0.5, ctl, jnp.float64)
+    np.testing.assert_array_equal(np.asarray(sol_b.n_accept),
+                                  np.asarray(sol_g.n_accept))
+    np.testing.assert_allclose(np.asarray(sol_b.y_final.re),
+                               np.asarray(sol_g.y_final.re), atol=1e-9)
 
 
-def test_fused_loop_max_norm_unpacked():
-    """max-kind declared norm runs in-kernel at G=1 (no packing)."""
-    model = DrivenDense.make(d=64, seed=0)
-    mod = model.modulated(jnp.float32)
-    y0 = _psi0(64, B=16, seed=5, dtype=jnp.float32)
-    from vec_ode_tpu.driver import integrate, make_grid
-
-    t_grid = make_grid(jnp.float32(0.0), jnp.float32(0.5),
-                       dtype=jnp.float32)
+def test_batched_max_norm_matches_generic():
+    """max-kind declared norm on the batched Magnus-4 driver."""
+    _, mod, op_fn = _driven()
+    y0 = _psi0(8, B=6, seed=5)
     wn = WeightedNorm("max")
-    ctl = vo.StepControl(rtol=1e-5, min_dt=1e-5, max_dt=0.2, max_steps=500)
-    st_f = vexp.MagnusModulated4(mod, interpret=True, norm=wn)
-    sol_f = _run_fused(st_f, y0, t_grid, ctl)
-    assert sol_f is not None and sol_f.path.startswith("pallas-loop")
-    st_x = vexp.MagnusModulated4(mod, use_pallas=False, norm=wn)
-    sol_x = integrate(
-        st_x.make_step_fn(), y0, t_grid, 1e-2, adaptive=True, ctl=ctl,
-        error_norm=st_x.error_norm, batch_shape=(y0.re.shape[0],),
-    )
-    a_f, a_x = np.asarray(sol_f.n_accept), np.asarray(sol_x.n_accept)
-    assert (a_f == a_x).mean() > 0.8, (a_f, a_x)
-    np.testing.assert_allclose(np.asarray(sol_f.y_final.re),
-                               np.asarray(sol_x.y_final.re),
-                               rtol=1e-4, atol=1e-4)
+    ctl = vo.StepControl(rtol=1e-7, min_dt=1e-5, max_dt=0.2, max_steps=500)
+    sol_b, sol_g = _batched_vs_generic(
+        vexp.MagnusModulated4(mod, norm=wn),
+        vexp.Magnus4(vexp.DenseCplxSplit(), batched=False), wn, y0, op_fn,
+        0.0, 0.5, ctl, jnp.float64)
+    np.testing.assert_array_equal(np.asarray(sol_b.n_accept),
+                                  np.asarray(sol_g.n_accept))
+    np.testing.assert_allclose(np.asarray(sol_b.y_final.re),
+                               np.asarray(sol_g.y_final.re), atol=1e-9)
 
 
-# ------------------------------------------------------ lane packing --
-
-
-def test_packed_weighted_norm_matches_xla_driver():
-    """d=2 Landau-Zener adaptive Magnus-4, per-component weights: stays
-    LANE-PACKED (G=64, the weight row tiles group-wise) and matches the
-    XLA driver applying the same declaration."""
-    lz = LandauZener(v=2.0, delta=0.4)
-    mod = lz.modulated(jnp.float32)
-    B = 256
+def _lz_ensemble(B):
     psi0 = np.zeros((B, 2), np.complex64)
     psi0[:, 0] = 1.0
-    y0 = cp.from_complex(psi0, jnp.float32)
-    wn = WeightedNorm("l2", weights=np.asarray([2.0, 0.5], np.float32))
+    return cp.from_complex(psi0, jnp.float32)
+
+
+@pytest.mark.parametrize("wn", [
+    WeightedNorm("l2", weights=np.asarray([2.0, 0.5], np.float32)),
+    WeightedNorm("max"),
+], ids=["l2-weighted", "max"])
+def test_small_dim_declared_norm_matches_generic(wn):
+    """d=2 Landau-Zener adaptive Magnus-4 over a 256-trajectory f32
+    ensemble with a declared norm matches the generic stepper applying
+    the same declaration (f32 rounding summed over the steps)."""
+    lz = LandauZener(v=2.0, delta=0.4)
+    mod = lz.modulated(jnp.float32)
     ctl = vo.StepControl(rtol=1e-5, max_steps=4000, min_dt=1e-4,
                          max_dt=1.0)
-    grid = jnp.asarray([-20.0, 20.0], jnp.float32)
-
-    st = vexp.MagnusModulated4(mod, interpret=True, norm=wn)
-    sol = _run_fused(st, y0, grid, ctl)
-    assert sol is not None
-    assert sol.path == "pallas-loop-persistent-packed"
-
-    oracle = ensemble_solve(
-        mod, y0, -20.0, 20.0,
-        stepper=vexp.MagnusModulated4(mod, use_pallas=False, norm=wn),
-        adaptive=True, h0=1e-2, ctl=ctl, time_dtype=jnp.float32,
-    )
-    assert (np.asarray(sol.status) == vo.DONE).all()
+    sol, oracle = _batched_vs_generic(
+        vexp.MagnusModulated4(mod, norm=wn),
+        vexp.Magnus4(vexp.DenseCplxSplit(), batched=False), wn,
+        _lz_ensemble(256), lambda t: lz.op_pair(t, jnp.float32),
+        -20.0, 20.0, ctl, jnp.float32)
     a_f, a_x = np.asarray(sol.n_accept), np.asarray(oracle.n_accept)
     assert (a_f == a_x).mean() > 0.8, (a_f, a_x)
     np.testing.assert_allclose(np.asarray(sol.y_final.re),
                                np.asarray(oracle.y_final.re),
                                rtol=2e-4, atol=2e-4)
-
-
-def test_packed_max_norm_falls_back():
-    """max-kind + lane packing cannot ride the one-hot reduction matmul:
-    fused_loop_solve declines (returns None) so the dispatcher's XLA
-    driver applies the declaration instead — loudly correct, not wrong."""
-    lz = LandauZener(v=2.0, delta=0.4)
-    mod = lz.modulated(jnp.float32)
-    psi0 = np.zeros((64, 2), np.complex64)
-    psi0[:, 0] = 1.0
-    y0 = cp.from_complex(psi0, jnp.float32)
-    wn = WeightedNorm("max")
-    ctl = vo.StepControl(rtol=1e-5, max_steps=4000, min_dt=1e-4,
-                         max_dt=1.0)
-    st = vexp.MagnusModulated4(mod, interpret=True, norm=wn)
-    sol = _run_fused(st, y0, jnp.asarray([-20.0, 20.0], jnp.float32), ctl)
-    assert sol is None
 
 
 # -------------------------------------------------- ensemble wiring --
@@ -337,75 +285,36 @@ def test_weighted_norm_conflicts_raise():
         )
 
 
-def test_rk_stepper_weighted_norm_all_tiers(monkeypatch):
-    """FusedModulatedLinearRK executes a declared WeightedNorm on its XLA
-    step, its per-step Pallas kernel (interpret) and its fused loop — all
-    matching the driver applying the same declaration."""
-    from vec_ode_tpu.driver import integrate, make_grid
-    from vec_ode_tpu.models import DrivenDense
-    from vec_ode_tpu.ops import cplx as cp2
-    from vec_ode_tpu.ops import pallas_loop
-    from vec_ode_tpu.ops.pallas_rk import (FusedModulatedLinearRK,
-                                           fused_rk_step, xla_rk_step)
+def test_rk_stepper_weighted_norm():
+    """FusedModulatedLinearRK executes a declared WeightedNorm inside its
+    batched step: the solve matches the generic RungeKutta stepper per
+    trajectory with the same norm applied by the driver (f64), and the
+    weights change the step sequence."""
+    from vec_ode_tpu.ops.modulated_rk import FusedModulatedLinearRK
 
-    model = DrivenDense.make(d=64, seed=0)
-    rng = np.random.default_rng(51)
-    B = 16
-    z = rng.standard_normal((B, 64)) + 1j * rng.standard_normal((B, 64))
-    z /= np.linalg.norm(z, axis=-1, keepdims=True)
-    y0 = cp2.from_complex(z, jnp.float32)
-    w = np.linspace(0.5, 2.0, 64).astype(np.float32)
-    wn = WeightedNorm("l2", weights=w)
-    st = FusedModulatedLinearRK.from_driven_dense(model, jnp.float32,
+    model = DrivenDense.make(d=8, seed=0)
+    y0 = _psi0(8, B=6, seed=51)
+    wn = WeightedNorm("l2", weights=np.linspace(0.5, 4.0, 8))
+    st = FusedModulatedLinearRK.from_driven_dense(model, jnp.float64,
                                                   norm=wn)
-
-    # per-step: interpret kernel == XLA step with the same declaration
-    xw = jnp.concatenate([y0.re, y0.im], axis=1)
-    t = jnp.zeros((B,), jnp.float32)
-    dt = jnp.full((B,), 1e-2, jnp.float32)
-    M0 = jnp.asarray(st.M0, jnp.float32)
-    M1 = jnp.asarray(st.M1, jnp.float32)
-    kp = st._wnorm(64)
-    ox_p, oe_p = fused_rk_step(t, dt, xw, M0, M1, u_fn=st.u_fn,
-                               tile=8, interpret=True, wnorm=kp)
-    ox_x, oe_x = xla_rk_step(t, dt, xw, M0, M1, u_fn=st.u_fn, wnorm=kp)
-    np.testing.assert_allclose(np.asarray(oe_p), np.asarray(oe_x),
-                               rtol=1e-5, atol=1e-8)
-    # semantics: the declared norm == WeightedNorm applied to the raw
-    # error vector of the undeclared step
-    _, e_plain = xla_rk_step(t, dt, xw, M0, M1, u_fn=st.u_fn)
-    # (cannot recover the raw vector from the norm — check the weighted
-    # norm actually differs from the plain one)
-    assert not np.allclose(np.asarray(oe_x), np.asarray(e_plain),
-                           rtol=1e-3, atol=0)
-
-    # fused loop == XLA driver, same declared norm
-    ctl = vo.StepControl(rtol=1e-4, min_dt=1e-6, max_dt=0.25,
+    ctl = vo.StepControl(rtol=1e-6, min_dt=1e-6, max_dt=0.25,
                          max_steps=500)
-    t_grid = make_grid(jnp.float32(0), jnp.float32(0.3),
-                       dtype=jnp.float32)
-    orig_chunk = pallas_loop.fused_loop_chunk
-
-    def chunk_interp(*args, **kw):
-        kw["interpret"] = True
-        kw["tile"] = 8
-        return orig_chunk(*args, **kw)
-
-    monkeypatch.setattr(pallas_loop, "fused_loop_chunk", chunk_interp)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    sol_f = st.fused_loop_solve(y0, t_grid, 1e-2, ctl=ctl, adaptive=True)
-    assert sol_f is not None, "fused RK loop did not engage with norm="
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    sol_x = integrate(
-        st.make_step_fn(), y0, t_grid, 1e-2, adaptive=True, ctl=ctl,
-        error_norm=st.error_norm, batch_shape=(B,),
-    )
-    a_f, a_x = np.asarray(sol_f.n_accept), np.asarray(sol_x.n_accept)
-    assert (a_f == a_x).mean() > 0.8, (a_f, a_x)
-    np.testing.assert_allclose(np.asarray(sol_f.y_final.re),
-                               np.asarray(sol_x.y_final.re),
-                               rtol=2e-4, atol=2e-4)
+    kw = dict(adaptive=True, h0=1e-2, ctl=ctl, time_dtype=jnp.float64)
+    sol_b = ensemble_solve(None, y0, 0.0, 0.6, stepper=st, **kw)
+    sol_g = ensemble_solve(
+        lambda t, y: model.rhs_pair(t, y, jnp.float64), y0, 0.0, 0.6,
+        stepper=vo.RungeKutta(vo.RKF45), error_norm=wn, **kw)
+    assert (np.asarray(sol_b.status) == vo.DONE).all()
+    np.testing.assert_array_equal(np.asarray(sol_b.n_accept),
+                                  np.asarray(sol_g.n_accept))
+    np.testing.assert_allclose(np.asarray(sol_b.y_final.re),
+                               np.asarray(sol_g.y_final.re), atol=1e-10)
+    sol_u = ensemble_solve(
+        None, y0, 0.0, 0.6,
+        stepper=FusedModulatedLinearRK.from_driven_dense(model,
+                                                         jnp.float64),
+        **kw)
+    assert (np.asarray(sol_u.n_accept) != np.asarray(sol_b.n_accept)).any()
 
 
 def test_generic_batched_tier_weighted_norm():

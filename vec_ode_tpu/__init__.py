@@ -1,13 +1,13 @@
-"""vec_ode_tpu: TPU-native ODE integration framework (JAX/XLA/Pallas).
+"""vec_ode_tpu: batched ODE integration framework on JAX/XLA.
 
 A brand-new framework with the capabilities of the Rust crate
 ``hmunozb/vec-ode`` (generic ODE integration over arbitrary vector-space
-states), re-designed TPU-first: pytree vector spaces, branchless
+states), re-designed for accelerators: pytree vector spaces, branchless
 ``lax.while_loop`` drivers, batched exponential integrators, and
 ``vmap``/``shard_map`` ensemble scale-out. See SURVEY.md for the layer map.
 """
 
-from . import comp, config, lc, tableaus
+from . import comp, lc, tableaus
 from . import dense, diff, events, exp, models, parallel, quad
 from .api import solve_ivp, solve_linear
 from .dense import solve_ivp_dense, solve_linear_dense
@@ -53,7 +53,6 @@ __version__ = "0.1.0"
 
 __all__ = [
     "comp",
-    "config",
     "lc",
     "tableaus",
     "dense",

@@ -77,8 +77,8 @@ class StepControl:
     # accumulation to ~eps_f32 instead of drifting by ~n*eps_f32. The
     # reference accumulates t PLAINLY in f64 (t += dt, ode.rs:184-188);
     # False reproduces that bit-for-bit (the C++ oracle parity tests use
-    # it). Default True: on the f32 TPU path this closes the last fidelity
-    # gap with the reference's native f64 regime (VERDICT r3 #4).
+    # it). Default True: on the f32 path this closes the last fidelity
+    # gap with the reference's native f64 regime.
     time_compensated: bool = True
 
     def __post_init__(self):

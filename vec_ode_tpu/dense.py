@@ -56,40 +56,6 @@ def _hermite_basis(th):
     return h00, h10, h01, h11
 
 
-def hermite_from_endpoints(t_eval, td, dtd, x0, x1, slope_fn):
-    """Batched cubic-Hermite evaluation from fused-kernel step-endpoint
-    recordings (ops/pallas_loop ``dense_n``): all save slots evaluate in
-    ONE fused op batch — per-slot Python loops cost ~20 XLA dispatches a
-    slot on this backend (~90 us each) and were measured to eat the
-    kernel's dense-output win.
-
-    ``t_eval``: (n,) save times; ``td``/``dtd``: (B, n) crossing-step entry
-    time / dt (t_entry = +inf marks a never-crossed slot -> zeros out);
-    ``x0``/``x1``: (n, B, D) step entry/exit states; ``slope_fn(t, x)``
-    maps ((M,), (M, D)) -> (M, D) flat rows. Returns (n, B, D)."""
-    n, B, _ = x0.shape
-    tdT, dtdT = td.T, dtd.T                         # (n, B)
-    rec = jnp.isfinite(tdT)
-    t_safe = jnp.where(rec, tdT, 0.0)
-    dt_safe = jnp.where(rec & (dtdT > 0), dtdT, 1.0)
-    # endpoint buffers are zero-initialized, but sanitize anyway so a
-    # poisoned (NaN) lane cannot leak through the 0-weight branch
-    x0 = jnp.where(rec[..., None], x0, 0.0)
-    x1 = jnp.where(rec[..., None], x1, 0.0)
-    th = jnp.clip((t_eval[:, None] - t_safe) / dt_safe, 0.0, 1.0)
-
-    def flat_slope(t, xw):
-        return slope_fn(t.reshape(-1),
-                        xw.reshape(n * B, -1)).reshape(xw.shape)
-
-    f0 = flat_slope(t_safe, x0)
-    f1 = flat_slope(t_safe + dt_safe, x1)
-    h00, h10, h01, h11 = _hermite_basis(th)
-    yw = (h00[..., None] * x0 + (h10 * dt_safe)[..., None] * f0
-          + h01[..., None] * x1 + (h11 * dt_safe)[..., None] * f1)
-    return jnp.where(rec[..., None], yw, 0.0)
-
-
 def hermite_cubic(x0: Pytree, x1: Pytree, f0: Pytree, f1: Pytree, dt, theta):
     """Cubic Hermite interpolant on [0, 1] with endpoint values/slopes."""
     h00, h10, h01, h11 = _hermite_basis(theta)

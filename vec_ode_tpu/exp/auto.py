@@ -1,10 +1,10 @@
 """Automatic structure detection for black-box operator callbacks.
 
 The reference's exponential solvers only ever see an opaque callback
-``Fun: FnMut(&[T]) -> Vec<L>`` (magnus.rs:32, cfm.rs:54). On TPU that
-generic contract has a hard FLOP floor (per-trajectory dense propagators;
-see ops/pallas_dense.py) — but nearly every PHYSICAL time-dependent
-operator actually lives in a low-dimensional matrix subspace:
+``Fun: FnMut(&[T]) -> Vec<L>`` (magnus.rs:32, cfm.rs:54). That generic
+contract has a hard FLOP floor (per-trajectory dense propagators; see
+exp/dense_fast.py) — but nearly every PHYSICAL time-dependent operator
+actually lives in a low-dimensional matrix subspace:
 
     A(t) = sum_k c_k(t) * M_k,    K small (driven Hamiltonians: K = 2-4).
 
@@ -15,10 +15,9 @@ a :class:`~vec_ode_tpu.exp.modulated.ModulatedOperator` whose ``coeff_fn``
 projects A(t) onto the recovered orthonormal basis (one operator assembly
 + one (2d^2, K) matmul per quadrature node). The result plugs into the
 shared-basis fast steppers (MagnusModulated4 / CFM4Modulated / ...), whose
-fused per-step kernels run ~8x faster than the best truly-generic dense
-path at 256x64c — so a black-box user recovers the structured rate
-whenever the structure exists, with the dense path as the honest fallback
-when it does not.
+steps are shared-matrix GEMMs instead of per-trajectory expms — so a
+black-box user recovers the structured path whenever the structure exists,
+with the dense path as the honest fallback when it does not.
 
 The detection is exact-rank, not approximation: candidates are validated
 at held-out probe times and ``None`` is returned unless the reconstruction
@@ -58,9 +57,6 @@ def auto_modulated(
     rank_tol: float = 1e-7,
     validate_tol: float = 1e-5,
     dtype=None,
-    fit_cols: bool = True,
-    cols_deg: int = 64,
-    cols_tol: Optional[float] = None,
 ) -> Optional[ModulatedOperator]:
     """Recover ``A(t) = sum_k c_k(t) M_k`` structure from a black-box
     ``op_fn(t) -> L`` (L: Cplx (d, d) pair or real (d, d) array).
@@ -74,18 +70,6 @@ def auto_modulated(
     ``n_probe`` concrete times. The returned ``coeff_fn`` evaluates
     ``op_fn`` per quadrature node and projects — traced, batched via an
     internal vmap for (B,)-shaped times.
-
-    ``fit_cols=True`` additionally fits each recovered coefficient
-    c_k(t) over [t0, tf] with a Chebyshev series (degree ``cols_deg``,
-    coefficients truncated where they fall below roundoff) and — ONLY if
-    the refit operator reconstructs ``op_fn`` at held-out times to
-    ``cols_tol`` (default ``validate_tol``) — attaches a kernel-
-    compatible ``coeff_cols_fn`` (elementwise Clenshaw recurrence). That
-    unlocks the WHOLE-LOOP fused kernel (ops/pallas_loop.py), including
-    lane packing for small dims, for the reference's opaque operator
-    contract; a failed fit silently leaves ``coeff_cols_fn=None`` and
-    the per-step fused path still applies. The series is only valid on
-    [t0, tf] — integrate within the declared window.
     """
     if n_probe is None:
         n_probe = 2 * k_max + 8
@@ -146,75 +130,4 @@ def auto_modulated(
         ).astype(dtype)
         return jnp.matmul(v, V_j, precision=HIGHEST)   # (K,)
 
-    coeff_cols_fn = None
-    if fit_cols:
-        coeff_cols_fn = _fit_coeff_cols(
-            op_fn, V, t0f, tff, is_cplx, K,
-            deg=cols_deg,
-            tol=validate_tol if cols_tol is None else cols_tol,
-        )
-
-    return ModulatedOperator(basis=basis, coeff_fn=coeff_fn,
-                             coeff_cols_fn=coeff_cols_fn)
-
-
-def _fit_coeff_cols(op_fn, V, t0f, tff, is_cplx, K, *, deg, tol):
-    """Chebyshev-fit the projection coefficients c_k(t) = V @ vec(A(t))
-    over [t0, tf] and return an ELEMENTWISE ``coeff_cols_fn`` (Clenshaw
-    recurrence over baked float constants — pure jnp mul/add, so it runs
-    inside the fused loop kernel), or None when the fit cannot
-    reconstruct the operator at held-out times to ``tol``.
-
-    All work is host-side numpy at setup; op_fn is sampled at
-    Chebyshev-Gauss points (no Runge phenomenon, near-minimax fit)."""
-    from numpy.polynomial import chebyshev as _cheb
-
-    n_fit = max(2 * deg + 2, 96)
-    # Chebyshev-Gauss nodes mapped to [t0, tf]
-    u_fit = np.cos(np.pi * (2 * np.arange(n_fit) + 1) / (2 * n_fit))
-    ts = 0.5 * (t0f + tff) + 0.5 * (tff - t0f) * u_fit
-    C = np.stack([V @ _vec_host(op_fn(float(t)), is_cplx) for t in ts])
-    if not np.all(np.isfinite(C)):
-        return None
-    series = _cheb.chebfit(u_fit, C, deg)          # (deg+1, K)
-    # truncate the tail: keep terms above roundoff of the largest
-    mags = np.max(np.abs(series), axis=1)
-    keep = np.nonzero(mags > 1e-12 * max(mags.max(), 1e-300))[0]
-    if keep.size == 0:
-        series = series[:1]
-    else:
-        series = series[: keep[-1] + 1]
-    # held-out validation: the REFIT operator (series coeffs through the
-    # basis) must reconstruct op_fn — golden-ratio times, like the rank
-    # validation above
-    phi = 0.6180339887498949
-    scale = 0.0
-    for t in t0f + ((np.arange(1, deg // 2 + 6) * phi) % 1.0) * (tff - t0f):
-        v = _vec_host(op_fn(float(t)), is_cplx)
-        u = (2.0 * t - (t0f + tff)) / (tff - t0f)
-        c_fit = _cheb.chebval(u, series)           # (K,)
-        resid = np.linalg.norm(v - V.T @ c_fit)
-        nrm = np.linalg.norm(v)
-        scale = max(scale, nrm)
-        if nrm > 0.0 and (not np.isfinite(resid) or resid > tol * nrm):
-            return None
-    if scale == 0.0:
-        return None
-    coeffs = [[float(series[j, k]) for j in range(series.shape[0])]
-              for k in range(K)]
-    lo, hi = float(t0f), float(tff)
-
-    def coeff_cols_fn(t):
-        # map to [-1, 1]; Clenshaw per recovered basis direction — all
-        # elementwise ops on the (TILE, 1)/(TILE, G) time column
-        u = (2.0 * t - (lo + hi)) * (1.0 / (hi - lo))
-        cols = []
-        for c in coeffs:
-            b1 = jnp.zeros_like(u)
-            b2 = jnp.zeros_like(u)
-            for j in range(len(c) - 1, 0, -1):
-                b1, b2 = 2.0 * u * b1 - b2 + c[j], b1
-            cols.append(u * b1 - b2 + c[0])
-        return cols
-
-    return coeff_cols_fn
+    return ModulatedOperator(basis=basis, coeff_fn=coeff_fn)

@@ -1,6 +1,6 @@
 """Commutator-free Magnus (CFM) steppers.
 
-TPU-native counterpart of ``/root/reference/src/exp/cfm.rs``. A CFM step
+JAX counterpart of ``/root/reference/src/exp/cfm.rs``. A CFM step
 samples A(t) at quadrature nodes t + c_j dt and applies s exponentials of
 linear combinations of the samples:
 
@@ -54,7 +54,7 @@ def cfm_step(
     """s-exponential CFM step with optional embedded error pass
     (cfm_general, cfm.rs:43-100).
 
-    TPU economy: every exponential's OPERATOR depends only on the quadrature
+    Economy: every exponential's OPERATOR depends only on the quadrature
     samples (not on the evolving state), so all s + s_err exponentials are
     computed upfront in ONE stacked batched expm (``exp_many``) and only the
     cheap propagator applications run sequentially — vs the reference's
@@ -144,13 +144,10 @@ def cfm_step_comp(op_fn, split, t, x, dt, alpha, c, alpha_err, lo):
 
 
 def _cfm_batched_step(assemble, split, t, x, dt, alpha, c, alpha_err, *,
-                      use_pallas, interpret, max_squarings=16, wnorm=None,
-                      lo=None):
+                      max_squarings=16, wnorm=None, lo=None):
     """Batched CFM on per-trajectory dense operators: all main + error
-    exponentials in ONE stacked batched expm (default executor; the
-    opt-in fused kernel builds the row lincombs in-kernel instead — see
-    exp/dense_fast.py). Unequal main/error chain lengths are native: no
-    zero-row padding."""
+    exponentials in ONE stacked batched expm (exp/dense_fast.py). Unequal
+    main/error chain lengths are native: no zero-row padding."""
     from . import dense_fast as df
 
     J = len(c)
@@ -175,13 +172,6 @@ def _cfm_batched_step(assemble, split, t, x, dt, alpha, c, alpha_err, *,
             out.append(scale * acc)
         return out
 
-    def kernel_chains(mats, scalars):
-        (dt_s,) = scalars[0]
-        main = _rows(mats, alpha, dt_s)
-        if alpha_err is None:
-            return [main]
-        return [main, _rows(mats, alpha_err, dt_s)]
-
     def xla_chains():
         dt3 = dt[..., None, None].astype(Es[0].dtype)
         main = _rows(Es, alpha, dt3)
@@ -190,10 +180,9 @@ def _cfm_batched_step(assemble, split, t, x, dt, alpha, c, alpha_err, *,
         return [main, _rows(Es, alpha_err, dt3)]
 
     return df.run_batched_chains(
-        split, x, dt, Es, kernel_chains, xla_chains,
-        adaptive=alpha_err is not None, use_pallas=use_pallas,
-        interpret=interpret, max_squarings=max_squarings, wnorm=wnorm,
-        lo=lo,
+        split, x, dt, xla_chains,
+        adaptive=alpha_err is not None, max_squarings=max_squarings,
+        wnorm=wnorm, lo=lo,
     )
 
 
@@ -215,8 +204,6 @@ class CFM(_DenseBatchedStepper):
     alpha_err: Optional[tuple] = None
     op_fn: Callable = None
     batched: Optional[bool] = None   # None = auto (see _DenseBatchedStepper)
-    use_pallas: bool = False  # opt-in; XLA stacked-expm measures faster
-    interpret: bool = False
     max_squarings: int = 16
     norm: Optional[object] = None    # declared WeightedNorm (batched tier)
     compensated: bool = False  # double-f32 state pair (comp.py)
@@ -238,7 +225,6 @@ class CFM(_DenseBatchedStepper):
             if self._batched_mode(t):
                 return _cfm_batched_step(
                     assemble, self.split, t, x, dt, alpha, c, alpha_err,
-                    use_pallas=self.use_pallas, interpret=self.interpret,
                     max_squarings=self.max_squarings,
                     wnorm=self._wnorm_parts(x), lo=lo,
                 )
@@ -266,7 +252,7 @@ def CFM4(split: ExponentialSplit, op_fn: Callable = None, *,
          adaptive: bool = True, **kw) -> CFM:
     """The reference ExpCFMSolver configuration (cfm.rs:131-162): order 4/2
     pair on 2-node Gauss-Legendre. ``adaptive=False`` is ``no_adaptive()``.
-    Extra kwargs (batched / use_pallas / interpret / max_squarings) pass
+    Extra kwargs (batched / max_squarings / norm / compensated) pass
     through to :class:`CFM`."""
     return CFM(
         split=split,

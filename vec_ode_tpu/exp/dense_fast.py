@@ -4,21 +4,13 @@ The reference's exponential solvers take a black-box operator callback
 (``Fun: FnMut(&[T]) -> Vec<L>``, magnus.rs:32, cfm.rs:54); under an
 adaptive ensemble every trajectory carries its own time, so the samples
 A_b(t_i) are per-trajectory dense matrices with no shared structure. This
-module executes that contract efficiently on TPU:
+module executes that contract as batched XLA work:
 
   * one ``jax.vmap(op_fn)`` per quadrature node assembles the batched
     samples (the callback itself stays scalar-time, reference semantics);
   * ALL chain exponentials run as ONE stacked batched expm (ops.expm —
-    Paterson-Stockmeyer Taylor on XLA's batched GEMMs, which measure
-    ~16.5 TF/s f32-HIGHEST on the target chip) followed by the cheap
-    sequential matvecs — the default executor;
-  * ``use_pallas=True`` opts into the fully-fused per-trajectory kernel
-    (ops/pallas_dense.py: in-kernel commutators, scaling, propagators,
-    error norm). Measured at 256x64c it runs 1.81 ms/step vs the
-    stacked-expm path's 1.22 — Mosaic's serial per-trajectory matmuls
-    (~11.3 TF/s) lose to XLA's batched GEMMs — so it stays opt-in; see
-    ops/pallas_dense.py for the cost model and the generic contract's
-    FLOP floor.
+    Paterson-Stockmeyer Taylor on batched GEMMs) followed by the cheap
+    sequential matvecs.
 
 The steppers in exp/magnus.py and exp/cfm.py call into this module when
 their split advertises ``supports_batched_dense`` (DenseSplit /
@@ -27,38 +19,18 @@ DenseCplxSplit) and the driver hands them batched (t, x, dt).
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable
 
 import jax
 import jax.numpy as jnp
 
-from ..ops.pallas_dense import fused_dense_chain_apply
 from .protocol import ExponentialSplit
-
-# (PS degree, theta) per dtype: degree 12 costs the same 5 matmuls as
-# degree 8 via Paterson-Stockmeyer but admits theta=1.0 in f32 (truncation
-# ~1e-9 relative — under f32 eps), so adaptive steps with dt*||A|| <~ 1
-# pay ZERO squaring matmuls. f64 keeps the tight theta for ~eps truncation.
-_PS_CFG = {32: (12, 1.0), 64: (12, 0.25)}
-
-
-def ps_params(dtype):
-    return _PS_CFG[jnp.finfo(dtype).bits]
-
 
 def split_parts(split, x):
     """State as real 2-D parts: (re, im) for Cplx splits, (x,) for real."""
     if getattr(split, "is_cplx_split", False):
         return (x.re, x.im)
     return (x,)
-
-
-def split_unparts(split, parts):
-    if getattr(split, "is_cplx_split", False):
-        from ..ops.cplx import Cplx
-
-        return Cplx(*parts)
-    return parts[0]
 
 
 def embed_node(split, L):
@@ -68,23 +40,6 @@ def embed_node(split, L):
 
         return embed(L)
     return jnp.asarray(L)
-
-
-def kernel_ok(parts, use_pallas: bool, interpret: bool) -> bool:
-    """Fused-kernel eligibility. The kernel is OPT-IN (``use_pallas=True``
-    on the stepper) or forced by ``interpret`` (tests): measured on the
-    target v5e, XLA's batched GEMMs (~16.5 TF/s f32-HIGHEST) beat the
-    kernel's serial per-trajectory Mosaic matmuls (~11.3 TF/s) at every
-    batch size tried (1.22 vs 1.81 ms/step at 256x64c), so the DEFAULT
-    batched executor is the stacked-expm XLA path below."""
-    if not (interpret or
-            (use_pallas and jax.default_backend() == "tpu")):
-        return False
-    if parts[0].ndim != 2:
-        return False
-    B = parts[0].shape[0]
-    D = sum(p.shape[-1] for p in parts)
-    return D % 128 == 0 and B % 8 == 0
 
 
 def widen(parts):
@@ -104,37 +59,27 @@ def run_batched_chains(
     split: ExponentialSplit,
     x,
     dt: jax.Array,                       # (B,)
-    node_embedded: Sequence[jax.Array],  # n_nodes of (B, D, D)
-    kernel_chain_builder: Callable,      # in-kernel builder (mats, scalars)
     xla_chains: Callable,                # () -> [C][R_c] (B, D, D) exponents
     *,
     adaptive: bool,
-    use_pallas: bool,
-    interpret: bool,
     max_squarings: int = 16,
     wnorm=None,
     lo=None,
 ):
-    """Execute the chain structure on the fused kernel when eligible, else
-    on the XLA reference path. Returns (y, err_norm or None) with err as a
-    PER-TRAJECTORY NORM (the batched drivers use error_norm=identity).
+    """Execute the chain structure. Returns (y, err_norm or None) with err
+    as a PER-TRAJECTORY NORM (the batched drivers use error_norm=identity).
 
     ``wnorm=(w_row, post, kind)`` (lc.WeightedNorm.kernel_parts): declared
-    error norm over the widened layout — the XLA executor applies it
-    natively; the opt-in fused kernel (which computes a plain l2 norm
-    in-kernel) is skipped when a declaration is present.
+    error norm over the widened layout, or a traced-norm callable.
 
     ``lo`` (state-structured pytree) switches to the COMPENSATED tier
-    (vec_ode_tpu.comp, VERDICT r4 #1): chain propagators run in increment
+    (vec_ode_tpu.comp): chain propagators run in increment
     form via ``ops.expm.expm_m1`` (D <- D + phi_i (x + D), every term
     O(|dy|)), the error estimate is a DIFFERENCE OF INCREMENTS (noise floor
     eps*|dy| instead of eps*|y|), and the step returns
-    (y, err_norm, lo_next) with (y, lo_next) the TwoSum-renormalized pair.
-    Runs on the XLA executor only (the opt-in fused kernel has no
-    increment form)."""
+    (y, err_norm, lo_next) with (y, lo_next) the TwoSum-renormalized pair."""
     parts = split_parts(split, x)
     dtype = parts[0].dtype
-    m, theta = ps_params(dtype)
 
     if lo is not None:
         return _run_batched_chains_comp(
@@ -142,62 +87,14 @@ def run_batched_chains(
             adaptive=adaptive, max_squarings=max_squarings, wnorm=wnorm,
         )
 
-    def _tile_feasible():
-        # mirror fused_dense_chain_apply's VMEM-budgeted tile pick: fall
-        # back to the XLA executor (instead of raising) when the operand
-        # block cannot fit a >= 8-lane tile
-        B = parts[0].shape[0]
-        D = sum(p.shape[-1] for p in parts)
-        t = min(64, (4 << 20) // (len(node_embedded) * D * D * 4))
-        while t > 0 and B % t != 0:
-            t //= 2
-        return t >= 8
-
-    if kernel_ok(parts, use_pallas, interpret) and _tile_feasible() \
-            and wnorm is not None:
-        from .. import config as _config
-
-        _config._warn_fallback(
-            "declared WeightedNorm / traced error norm: the opt-in fused "
-            "dense kernel computes its own plain l2 norm in-kernel; the "
-            "XLA stacked-expm executor applies the norm instead")
-    if (wnorm is None and kernel_ok(parts, use_pallas, interpret)
-            and _tile_feasible()):
-        B = parts[0].shape[0]
-        D = sum(p.shape[-1] for p in parts)
-        n_nodes = len(node_embedded)
-        node_ops = jnp.stack(
-            [e.astype(dtype) for e in node_embedded], axis=1
-        ).reshape(B * n_nodes * D, D)
-        y_parts, e = fused_dense_chain_apply(
-            [dt.astype(dtype)[:, None]],
-            node_ops,
-            parts,
-            kernel_chain_builder,
-            n_nodes=n_nodes,
-            m=m,
-            theta=theta,
-            max_squarings=max_squarings,
-            interpret=interpret,
-        )
-        return split_unparts(split, y_parts), (e if adaptive else None)
-    # DEFAULT batched executor: one stacked batched expm (ops.expm — PS
-    # Taylor + batch-uniform squaring + exact Frechet-adjoint VJP, so
-    # reverse-mode through method="scan" solves keeps working) for ALL
-    # chain exponents at once, then the cheap sequential matvecs. Measured
-    # 1.22 ms/step at 256x64c vs 1.41 (old per-trajectory vmap) and 1.81
-    # (fused Mosaic kernel).
     from ..ops.expm import expm
     from ..utils.prec import HIGHEST
 
     chains = xla_chains()
     flat = [W.astype(dtype) for chain in chains for W in chain]
-    # STACK (K, B, D, D), do NOT concatenate to (K*B, D, D): a concatenated
-    # K*B batch (e.g. CFM4's 3*256=768) defeats XLA's batched-GEMM tiling
-    # inside expm and measured 3-4x slower end-to-end (36K vs 144K steps/s
-    # at 256x64c, r4 bisect); keeping B as the minor batch dim preserves
-    # the power-of-two tiling. The squaring count is batch-uniform either
-    # way (ops/expm.py:118-125), so the math is identical.
+    # STACK (K, B, D, D) rather than concatenating to (K*B, D, D): B stays
+    # the minor batch dim. The squaring count is batch-uniform either way
+    # (ops/expm.py), so the math is identical.
     U = expm(jnp.stack(flat), max_squarings=max_squarings)
     xw = widen(parts)
     B = xw.shape[0]

@@ -10,8 +10,7 @@ leaves the framework supplies so the exponential solvers are usable:
     elementwise (exact, cheapest).
   * :class:`AntiHermitianSplit` — L = -i*H*dt with H Hermitian (Schrödinger
     propagation); exp via eigendecomposition, exactly unitary up to eigh
-    accuracy. TPU note: jnp.linalg.eigh lowers to a QDWH-eig composed of
-    MXU-friendly matmuls.
+    accuracy.
 """
 
 from __future__ import annotations
@@ -98,8 +97,8 @@ class DenseSplit(ExponentialSplit):
 
     max_squarings: int = 16
 
-    # generic steppers over this leaf batch natively through the fused
-    # per-trajectory dense kernel (exp/dense_fast.py, ops/pallas_dense.py)
+    # generic steppers over this leaf batch natively through the stacked
+    # batched-expm executor (exp/dense_fast.py)
     supports_batched_dense = True
 
     def __post_init__(self):
@@ -142,10 +141,10 @@ class DiagonalSplit(ExponentialSplit):
 
 
 class _CplxSplitBase(ExponentialSplit):
-    """Shared operator algebra for real-pair complex splits: the TPU backend
-    has no complex dtypes (see vec_ode_tpu/ops/cplx.py), so operators and
-    states are :class:`~vec_ode_tpu.ops.cplx.Cplx` pairs and the scalar ops
-    route through cscale_any (complex trace-time coefficients, real traced
+    """Shared operator algebra for real-pair complex splits (see
+    vec_ode_tpu/ops/cplx.py): operators and states are
+    :class:`~vec_ode_tpu.ops.cplx.Cplx` pairs and the scalar ops route
+    through cscale_any (complex trace-time coefficients, real traced
     dt). Propagators are EMBEDDED real (..., 2d, 2d) matrices; the shared
     map_exp applies them with one widened real matmul."""
 
@@ -202,15 +201,15 @@ class DenseCplxSplit(_CplxSplitBase):
     """Dense complex-matrix leaf in real-pair representation.
 
     L: Cplx of (..., d, d). exp via the real ring embedding (one real
-    (2d, 2d) expm — for d=64 the matmuls are exactly 128-wide MXU tiles).
+    (2d, 2d) expm — for d=64, 128-wide real GEMMs).
     Diagonal Padé is unitary on anti-Hermitian input, so Schrödinger
     propagators stay norm-conserving to roundoff — use this leaf for
-    quantum problems on TPU (no eigh required)."""
+    quantum problems in f32 (no eigh required)."""
 
     max_squarings: int = 16
 
-    # generic steppers over this leaf batch natively through the fused
-    # per-trajectory dense kernel (exp/dense_fast.py, ops/pallas_dense.py)
+    # generic steppers over this leaf batch natively through the stacked
+    # batched-expm executor (exp/dense_fast.py)
     supports_batched_dense = True
 
     def __post_init__(self):
@@ -264,7 +263,7 @@ class AntiHermitianCplxSplit(_CplxSplitBase):
         exp(M) = cos(P) + M sinc(P),   P = sqrt(-M²)  (symmetric PSD)
 
     computed with ONE real eigh of -M² plus three real matmuls — no complex
-    arithmetic anywhere (TPU-compatible) and exactly orthogonal (=> the
+    arithmetic anywhere and exactly orthogonal (=> the
     complex propagator is exactly unitary) up to eigh accuracy. Use for
     long Schrödinger integrations where Padé/Taylor unitarity drift over
     many steps matters; DenseCplxSplit is cheaper per step.

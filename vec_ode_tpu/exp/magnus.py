@@ -1,6 +1,6 @@
 """Exponential midpoint (Magnus-2) and adaptive Magnus-4 steppers.
 
-TPU-native counterpart of ``/root/reference/src/exp/magnus.rs``. Both solve
+JAX counterpart of ``/root/reference/src/exp/magnus.rs``. Both solve
 the linear system dx/dt = A(t) x where the user supplies an operator-assembly
 function ``op_fn(t) -> L`` (scalar time in, operator pytree out); solvers that
 need several time samples ``vmap`` it over the quadrature nodes, turning the
@@ -99,40 +99,32 @@ def magnus6_step(op_fn, split: ExponentialSplit, t, x, dt, *,
     return xf, err
 
 
-def _midpoint_batched_step(assemble, split, t, x, dt, *, use_pallas,
-                           interpret, max_squarings=16, lo=None):
+def _midpoint_batched_step(assemble, split, t, x, dt, *,
+                           max_squarings=16, lo=None):
     """Batched exponential midpoint on per-trajectory dense operators
-    (default: stacked batched expm; opt-in fused kernel — see
-    exp/dense_fast.py). ``assemble(t_vec)`` -> per-trajectory operators."""
+    (stacked batched expm, exp/dense_fast.py). ``assemble(t_vec)`` ->
+    per-trajectory operators."""
     from . import dense_fast as df
 
     A = assemble(t + 0.5 * dt)
     E = df.embed_node(split, A)
 
-    def kernel_chains(mats, scalars):
-        (dt_s,) = scalars[0]
-        return [[dt_s * mats[0]]]
-
     def xla_chains():
         return [[dt[..., None, None].astype(E.dtype) * E]]
 
     return df.run_batched_chains(
-        split, x, dt, [E], kernel_chains, xla_chains,
-        adaptive=False, use_pallas=use_pallas, interpret=interpret,
-        max_squarings=max_squarings, lo=lo,
+        split, x, dt, xla_chains,
+        adaptive=False, max_squarings=max_squarings, lo=lo,
     )
 
 
 def _magnus4_batched_step(assemble, split, t, x, dt, *, adaptive,
-                          use_pallas, interpret, max_squarings=16,
-                          fast_error=False, wnorm=None, lo=None):
+                          max_squarings=16, fast_error=False, wnorm=None,
+                          lo=None):
     """Batched Magnus-4 on per-trajectory dense operators: the batched
     commutator + ONE stacked batched expm of the order-4/2 exponent pair
-    (default executor; the opt-in fused kernel moves the commutator and
-    propagators in-kernel — see exp/dense_fast.py for the measured
-    trade). ``fast_error`` replaces the comparison propagator with the
-    w2·xf estimate (see magnus4_step) — the expm stack halves."""
-    from ..ops.pallas_dense import _mm
+    (exp/dense_fast.py). ``fast_error`` replaces the comparison propagator
+    with the w2·xf estimate (see magnus4_step) — the expm stack halves."""
     from ..utils.prec import HIGHEST
     from . import dense_fast as df
 
@@ -147,8 +139,7 @@ def _magnus4_batched_step(assemble, split, t, x, dt, *, adaptive,
     E1, E2 = E12[:B], E12[B:]
 
     def _comm(scale):
-        # both commutator products in ONE batched GEMM (VERDICT r4 #3:
-        # fold the commutator GEMMs into one batch)
+        # both commutator products in ONE batched GEMM
         from ..utils.prec import mm
 
         P = mm(jnp.concatenate([E1, E2]), jnp.concatenate([E2, E1]))
@@ -159,17 +150,9 @@ def _magnus4_batched_step(assemble, split, t, x, dt, *, adaptive,
         w2 = _comm(_B2 * dt3 * dt3)
         omega = 0.5 * dt3 * (E1 + E2) + w2
 
-        def kernel_chains_f(mats, scalars):
-            M1, M2 = mats
-            (dt_s,) = scalars[0]
-            comm = _mm(M1, M2, HIGHEST) - _mm(M2, M1, HIGHEST)
-            return [[(0.5 * dt_s) * (M1 + M2)
-                     + (_B2 * dt_s * dt_s) * comm]]
-
         out = df.run_batched_chains(
-            split, x, dt, [E1, E2], kernel_chains_f, lambda: [[omega]],
-            adaptive=False, use_pallas=use_pallas, interpret=interpret,
-            max_squarings=max_squarings, lo=lo,
+            split, x, dt, lambda: [[omega]],
+            adaptive=False, max_squarings=max_squarings, lo=lo,
         )
         y = out[0]
         yw = df.widen(df.split_parts(split, y))
@@ -182,14 +165,6 @@ def _magnus4_batched_step(assemble, split, t, x, dt, *, adaptive,
             return y, e, out[2]
         return y, e
 
-    def kernel_chains(mats, scalars):
-        M1, M2 = mats
-        (dt_s,) = scalars[0]
-        w1 = (0.5 * dt_s) * (M1 + M2)
-        comm = _mm(M1, M2, HIGHEST) - _mm(M2, M1, HIGHEST)
-        omega = w1 + (_B2 * dt_s * dt_s) * comm
-        return [[omega], [w1]] if adaptive else [[omega]]
-
     def xla_chains():
         dt3 = dt[..., None, None].astype(E12.dtype)
         w1 = 0.5 * dt3 * (E1 + E2)
@@ -197,22 +172,18 @@ def _magnus4_batched_step(assemble, split, t, x, dt, *, adaptive,
         return [[omega], [w1]] if adaptive else [[omega]]
 
     return df.run_batched_chains(
-        split, x, dt, [E1, E2], kernel_chains, xla_chains,
-        adaptive=adaptive, use_pallas=use_pallas, interpret=interpret,
-        max_squarings=max_squarings, wnorm=wnorm, lo=lo,
+        split, x, dt, xla_chains,
+        adaptive=adaptive, max_squarings=max_squarings, wnorm=wnorm, lo=lo,
     )
 
 
 def _magnus6_batched_step(assemble, split, t, x, dt, *, adaptive,
-                          use_pallas, interpret, max_squarings=16,
-                          wnorm=None, lo=None):
+                          max_squarings=16, wnorm=None, lo=None):
     """Batched Magnus-6 (Yoshida triple-jump of the symmetric Magnus-4
     step) on per-trajectory dense operators: 3 sub-interval Magnus-4
     exponents (+ the embedded full-interval comparison) built from 6 (8)
     node samples; default executor = one stacked batched expm of all
     exponents (see exp/dense_fast.py)."""
-    from ..ops.pallas_dense import _mm
-    from ..utils.prec import HIGHEST
     from . import dense_fast as df
 
     n_sub = len(_SUB_OFF)
@@ -228,23 +199,6 @@ def _magnus6_batched_step(assemble, split, t, x, dt, *, adaptive,
         ts += [tm - _C_MID * ln * dt, tm + _C_MID * ln * dt]
     E_all = df.embed_node(split, assemble(jnp.concatenate(ts)))
     Es = [E_all[i * B:(i + 1) * B] for i in range(len(ts))]
-
-    def kernel_chains(mats, scalars):
-        (dt_s,) = scalars[0]
-
-        def m4_omega(Ma, Mb, dts):
-            w1 = (0.5 * dts) * (Ma + Mb)
-            comm = _mm(Ma, Mb, HIGHEST) - _mm(Mb, Ma, HIGHEST)
-            return w1 + (_B2 * dts * dts) * comm
-
-        main = [
-            m4_omega(mats[2 * i], mats[2 * i + 1],
-                     float(_SUB_LEN[i]) * dt_s)
-            for i in range(n_sub)
-        ]
-        if not adaptive:
-            return [main]
-        return [main, [m4_omega(mats[6], mats[7], dt_s)]]
 
     def xla_chains():
         from ..utils.prec import mm
@@ -273,9 +227,8 @@ def _magnus6_batched_step(assemble, split, t, x, dt, *, adaptive,
         return [main, [m4_omega(3, dt3)]]
 
     return df.run_batched_chains(
-        split, x, dt, Es, kernel_chains, xla_chains, wnorm=wnorm,
-        adaptive=adaptive, use_pallas=use_pallas, interpret=interpret,
-        max_squarings=max_squarings, lo=lo,
+        split, x, dt, xla_chains, wnorm=wnorm,
+        adaptive=adaptive, max_squarings=max_squarings, lo=lo,
     )
 
 
@@ -286,7 +239,7 @@ def magnus4_step(op_fn, split: ExponentialSplit, t, x, dt, *,
     Ω  = (A1 + A2) dt/2 - (sqrt(3)/12) dt^2 [A1, A2]
     xf = e^{Ω} x0 ;  err = e^{Ω1} x0 - xf with Ω1 the order-2 part.
 
-    TPU economy: with ``adaptive`` the order-4 and order-2 exponentials are
+    Economy: with ``adaptive`` the order-4 and order-2 exponentials are
     ONE stacked batched expm (``exp_many``) instead of two dispatches; with
     ``adaptive=False`` (the ``no_adaptive`` economy the reference's Magnus
     lacks — it always computes both, magnus.rs:63-79) the order-2
@@ -374,9 +327,8 @@ class _DenseBatchedStepper:
     When the split is a dense leaf (``supports_batched_dense``:
     DenseSplit / DenseCplxSplit), the stepper is natively batched
     (``is_batched``): the ensemble driver hands it batched (t, x, dt), all
-    chain exponentials run as ONE stacked batched expm (or the opt-in
-    fused Pallas kernel, ``use_pallas=True``), and the step returns the
-    per-trajectory error NORM (``error_norm`` = identity). Scalar solves
+    chain exponentials run as ONE stacked batched expm, and the step
+    returns the per-trajectory error NORM (``error_norm`` = identity). Scalar solves
     (solve_linear) keep the reference-shaped pytree path unchanged. Set
     ``batched=False`` to force the vmapped scalar path (required for
     ensemble ``params``)."""
@@ -401,8 +353,7 @@ class _DenseBatchedStepper:
     def _wnorm_parts(self, x):
         """kernel_parts of the declared ``norm`` (lc.WeightedNorm) over
         this split's widened layout, a widened-vector CALLABLE for a
-        traced norm (lc.TracedNorm — the batched XLA executor applies it;
-        Pallas kernels are gated off by run_batched_chains' wnorm check),
+        traced norm (lc.TracedNorm — the batched XLA executor applies it),
         or None. Batched-mode only — the scalar/vmapped path takes the
         norm via error_norm= instead."""
         wn = getattr(self, "norm", None)
@@ -471,7 +422,7 @@ class _DenseBatchedStepper:
 
     # ensemble_solve may quietly route an AUTO-batched stepper down the
     # vmapped path when the batched conventions conflict with the call
-    # (custom error_norm, scaled_error without a fused loop); an EXPLICIT
+    # (custom error_norm, scaled_error); an EXPLICIT
     # batched=True keeps the hard error instead
     @property
     def auto_batched(self) -> bool:
@@ -484,16 +435,6 @@ class _DenseBatchedStepper:
             and getattr(self.split, "supports_batched_dense", False)
         )
 
-    def step_path(self, y0) -> str:
-        from . import dense_fast as df
-
-        if getattr(self.split, "supports_batched_dense", False):
-            parts = df.split_parts(self.split, y0)
-            if df.kernel_ok(parts, self.use_pallas, self.interpret):
-                return "xla-driver+pallas-step"
-        return "xla-driver"
-
-
 @dataclasses.dataclass(frozen=True)
 class ExpMidpoint(_DenseBatchedStepper):
     """Fixed-step exponential midpoint (MidpointExpLinearSolver,
@@ -502,8 +443,6 @@ class ExpMidpoint(_DenseBatchedStepper):
     split: ExponentialSplit
     op_fn: Callable = None  # set via make_step_fn argument instead if None
     batched: Optional[bool] = None   # None = auto (see _DenseBatchedStepper)
-    use_pallas: bool = False  # opt-in; XLA stacked-expm measures faster
-    interpret: bool = False
     max_squarings: int = 16
     compensated: bool = False  # double-f32 state pair (comp.py)
 
@@ -517,7 +456,6 @@ class ExpMidpoint(_DenseBatchedStepper):
             if self._batched_mode(t):
                 return _midpoint_batched_step(
                     assemble, self.split, t, x, dt,
-                    use_pallas=self.use_pallas, interpret=self.interpret,
                     max_squarings=self.max_squarings, lo=lo,
                 )
             if params is not None:
@@ -541,15 +479,13 @@ class Magnus4(_DenseBatchedStepper):
     implemented for Magnus (its magnus_42 always computes both,
     magnus.rs:63-79).
 
-    Over a dense split, ensembles execute natively batched with ONE fused
-    Pallas kernel per driver iteration (see _DenseBatchedStepper)."""
+    Over a dense split, ensembles execute natively batched (see
+    _DenseBatchedStepper)."""
 
     split: ExponentialSplit
     op_fn: Callable = None
     adaptive: bool = True
     batched: Optional[bool] = None   # None = auto (see _DenseBatchedStepper)
-    use_pallas: bool = False  # opt-in; XLA stacked-expm measures faster
-    interpret: bool = False
     max_squarings: int = 16
     # declared error norm (lc.WeightedNorm), batched tier only (reference
     # NormFn, cfm.rs:131-155); the vmapped path takes error_norm= instead
@@ -572,7 +508,6 @@ class Magnus4(_DenseBatchedStepper):
             if self._batched_mode(t):
                 return _magnus4_batched_step(
                     assemble, self.split, t, x, dt, adaptive=self.adaptive,
-                    use_pallas=self.use_pallas, interpret=self.interpret,
                     max_squarings=self.max_squarings,
                     fast_error=self.fast_error,
                     wnorm=self._wnorm_parts(x), lo=lo,
@@ -610,14 +545,12 @@ class Magnus6(_DenseBatchedStepper):
     op_fn: Callable = None
     adaptive: bool = True
     batched: Optional[bool] = None   # None = auto (see _DenseBatchedStepper)
-    use_pallas: bool = False  # opt-in; XLA stacked-expm measures faster
-    interpret: bool = False
     max_squarings: int = 16
     norm: Optional[object] = None    # declared WeightedNorm (batched tier)
     compensated: bool = False  # double-f32 state pair (comp.py) — the tier
     # that makes this solver usable on f32 hardware: the increment-form
     # estimate lifts the ~1e-7 f32 noise floor that made rtol<=1e-7 reject
-    # every step (BENCH.md r4 time-to-accuracy table)
+    # every step
 
     @property
     def nfev_per_step(self) -> int:
@@ -632,7 +565,6 @@ class Magnus6(_DenseBatchedStepper):
             if self._batched_mode(t):
                 return _magnus6_batched_step(
                     assemble, self.split, t, x, dt, adaptive=self.adaptive,
-                    use_pallas=self.use_pallas, interpret=self.interpret,
                     max_squarings=self.max_squarings,
                     wnorm=self._wnorm_parts(x), lo=lo,
                 )

@@ -1,6 +1,6 @@
 """Exponential-split operator protocol.
 
-TPU-native counterpart of the reference trait family
+Counterpart of the reference trait family
 (``/root/reference/src/exp/mod.rs:11-54``): an ``ExponentialSplit`` knows how
 to exponentiate a linear operator L and apply the propagator U to a state x.
 

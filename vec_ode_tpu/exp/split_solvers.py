@@ -1,6 +1,6 @@
 """Split-operator solvers for dx/dt = (A(t) + B(t)) x.
 
-TPU-native counterpart of ``/root/reference/src/exp/split_exp.rs:520-706``.
+Counterpart of ``/root/reference/src/exp/split_exp.rs:520-706``.
 The operator-assembly callback is ``ops_fn(t) -> (La, Lb)``.
 
 Reference-bug fix (SURVEY.md §2.3(7)): the reference's ``split_exp_midpoint``
@@ -33,7 +33,7 @@ class _SplitBatched(_DenseBatchedStepper):
     """Batched-execution surface for the split solvers: engages when BOTH
     sub-splits are dense leaves of the same representation; the whole
     factor palindrome then runs as one stacked batched expm per step
-    (exp/dense_fast.py), with the opt-in fused kernel available."""
+    (exp/dense_fast.py)."""
 
     @property
     def split(self):
@@ -65,8 +65,7 @@ class _SplitBatched(_DenseBatchedStepper):
 
 
 def _split_midpoint_batched_step(assemble, sp_a, sp_b, t, x, dt, *,
-                                 strict, use_pallas, interpret,
-                                 max_squarings=16):
+                                 strict, max_squarings=16):
     """Batched Strang midpoint over dense pairs: the three factors run as
     one stacked batched expm per step (exp/dense_fast.py)."""
     from . import dense_fast as df
@@ -77,24 +76,18 @@ def _split_midpoint_batched_step(assemble, sp_a, sp_b, t, x, dt, *,
     EB = df.embed_node(sp_b, lb)
     w_b = 0.5 if strict else 1.0     # reference's dt/2 bug under strict
 
-    def kernel_chains(mats, scalars):
-        MA, MB = mats
-        (dt_s,) = scalars[0]
-        return [[(0.5 * dt_s) * MA, (w_b * dt_s) * MB, (0.5 * dt_s) * MA]]
-
     def xla_chains():
         dt3 = dt[..., None, None].astype(EA.dtype)
         return [[0.5 * dt3 * EA, w_b * dt3 * EB, 0.5 * dt3 * EA]]
 
     return df.run_batched_chains(
-        sp_a, x, dt, [EA, EB], kernel_chains, xla_chains,
-        adaptive=False, use_pallas=use_pallas, interpret=interpret,
-        max_squarings=max_squarings,
+        sp_a, x, dt, xla_chains,
+        adaptive=False, max_squarings=max_squarings,
     )
 
 
 def _split_cfm_batched_step(assemble, sp_a, sp_b, t, x, dt, rho, sigma, c,
-                            *, use_pallas, interpret, max_squarings=16):
+                            *, max_squarings=16):
     """Batched CFM-over-splits: the full BAB factor sequence
     expB(sigma_s) expA(rho_{s-1}) ... expB(sigma_0) as ONE stacked
     batched expm per step."""
@@ -126,18 +119,13 @@ def _split_cfm_batched_step(assemble, sp_a, sp_b, t, x, dt, rho, sigma, c,
         rows.append(_row(mats_b, sigma[-1], scale))
         return [rows]
 
-    def kernel_chains(mats, scalars):
-        (dt_s,) = scalars[0]
-        return _chain(mats[:J], mats[J:], dt_s)
-
     def xla_chains():
         dt3 = dt[..., None, None].astype(Es_a[0].dtype)
         return _chain(Es_a, Es_b, dt3)
 
     return df.run_batched_chains(
-        sp_a, x, dt, Es_a + Es_b, kernel_chains, xla_chains,
-        adaptive=False, use_pallas=use_pallas, interpret=interpret,
-        max_squarings=max_squarings,
+        sp_a, x, dt, xla_chains,
+        adaptive=False, max_squarings=max_squarings,
     )
 
 
@@ -212,8 +200,6 @@ class SplitMidpoint(_SplitBatched):
     strict_reference_compat: bool = False
     ops_fn: Callable = None
     batched: Optional[bool] = None   # None = auto (see _SplitBatched)
-    use_pallas: bool = False  # opt-in; XLA stacked-expm measures faster
-    interpret: bool = False
     max_squarings: int = 16
 
     nfev_per_step: int = 1
@@ -227,7 +213,6 @@ class SplitMidpoint(_SplitBatched):
                 return _split_midpoint_batched_step(
                     assemble, self.sp_a, self.sp_b, t, x, dt,
                     strict=self.strict_reference_compat,
-                    use_pallas=self.use_pallas, interpret=self.interpret,
                     max_squarings=self.max_squarings,
                 )
             if params is not None:
@@ -253,8 +238,6 @@ class SplitCFM(_SplitBatched):
     c: tuple
     ops_fn: Callable = None
     batched: Optional[bool] = None   # None = auto (see _SplitBatched)
-    use_pallas: bool = False  # opt-in; XLA stacked-expm measures faster
-    interpret: bool = False
     max_squarings: int = 16
 
     @property
@@ -272,7 +255,6 @@ class SplitCFM(_SplitBatched):
                 return _split_cfm_batched_step(
                     assemble, self.sp_a, self.sp_b, t, x, dt,
                     rho, sigma, np.asarray(self.c),
-                    use_pallas=self.use_pallas, interpret=self.interpret,
                     max_squarings=self.max_squarings,
                 )
             if params is not None:

@@ -1,6 +1,6 @@
 """Operator-splitting combinators.
 
-TPU-native counterpart of ``/root/reference/src/exp/split_exp.rs:24-517``.
+Counterpart of ``/root/reference/src/exp/split_exp.rs:24-517``.
 Each combinator composes two child splits over a direct-sum operator
 L = (La, Lb) (the reference's ``DirectSumL``, split_exp.rs:48-99 — here just a
 tuple, since pytrees subsume the direct-sum linear algebra). ``exp`` returns a

@@ -40,7 +40,7 @@ class TightBindingChain:
     def v(self, t):
         return jnp.cos(self.w * jnp.asarray(t))
 
-    # --- split operators, real-pair representation (TPU path) ---------------
+    # --- split operators, real-pair representation ------------------------
     def ops_pair(self, t, dtype=jnp.float32):
         """(La, Lb) for SplitMidpoint/RKNR4 over (DenseCplx, DiagonalCplx):
         La = -i H_hop (constant), Lb = -i v(t) diag(e)."""

@@ -46,8 +46,9 @@ class LinearConstant:
         from ..utils.prec import HIGHEST
 
         t = jnp.asarray(t, jnp.result_type(self.A.dtype, float))
-        # batch-aware matvec at HIGHEST precision (a bare `@` would run as
-        # bf16 on TPU f32 AND consume a (B, d) batch as a matrix product)
+        # batch-aware matvec at HIGHEST precision (a bare `@` may run with
+        # reduced-precision f32 products AND consume a (B, d) batch as a
+        # matrix product)
         return jnp.einsum("ij,...j->...i",
                           expm(self.A * t.astype(self.A.dtype)), y0,
                           precision=HIGHEST)

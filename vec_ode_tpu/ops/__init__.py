@@ -1,10 +1,11 @@
-"""Low-level TPU compute ops (XLA + Pallas kernels)."""
+"""Low-level compute ops: real-pair complex, matrix exponentials, the
+chain-exponential action, and the batched modulated-linear RK step."""
 
 from . import cplx
+from .chain import chain_expmv_xla, row_matmul
 from .cplx import Cplx
 from .expm import expm, expm_apply, expm_frechet
-from .pallas_expmv import chain_expmv_pallas, chain_expmv_xla
-from .pallas_rk import FusedModulatedLinearRK, fused_rk_step, xla_rk_step
+from .modulated_rk import FusedModulatedLinearRK, xla_rk_step
 
 __all__ = [
     "cplx",
@@ -13,8 +14,7 @@ __all__ = [
     "expm_apply",
     "expm_frechet",
     "FusedModulatedLinearRK",
-    "fused_rk_step",
     "xla_rk_step",
-    "chain_expmv_pallas",
     "chain_expmv_xla",
+    "row_matmul",
 ]

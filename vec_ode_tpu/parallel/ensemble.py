@@ -77,16 +77,13 @@ def ensemble_solve(
     ``dense=True`` switches the save semantics from grid-HITTING to
     dense.py's free-running interpolation: interior ``save_at`` times never
     perturb the controller's step sequence; each is filled by the cubic
-    Hermite of the step that crossed it. On fused-loop-eligible configs
-    the recording happens IN-KERNEL (the persistent Pallas loop keeps its
-    throughput; ``Solution.path`` gains a ``-dense`` suffix); otherwise
-    the XLA dense driver (dense.integrate_interp) runs, with endpoint
+    Hermite of the step that crossed it (dense.integrate_interp; endpoint
     slopes from the stepper's ``hermite_slope`` method or its
-    ModulatedOperator. Supported across the batched families (modulated
-    exp steppers AND ops/pallas_rk.FusedModulatedLinearRK) and the
-    vmapped tier (RungeKutta stage-slope/Hermite, exp-split Hermite).
-    ``dense`` + ``events`` requires the fused kernel (the XLA dense
-    driver carries no event state).
+    ModulatedOperator; ``Solution.path`` gains a ``-dense`` suffix).
+    Supported across the batched families (modulated exp steppers AND
+    ops/modulated_rk.FusedModulatedLinearRK) and the vmapped tier
+    (RungeKutta stage-slope/Hermite, exp-split Hermite). ``dense`` and
+    ``events`` are exclusive (the dense driver carries no event state).
     """
     from ..events import as_event_config
 
@@ -114,8 +111,8 @@ def ensemble_solve(
             )
             if stepper_norm is not None and declares_norm:
                 # norm-returning stepper with native WeightedNorm support:
-                # install the declaration — its step kernels AND the fused
-                # loop kernel execute it (reference NormFn, cfm.rs:131-155)
+                # install the declaration — its step executes it
+                # (reference NormFn, cfm.rs:131-155)
                 existing = getattr(stepper, "norm", None)
                 if existing is None:
                     stepper = _dc.replace(stepper, norm=error_norm)
@@ -137,12 +134,12 @@ def ensemble_solve(
                 custom_norm = False
                 error_norm = error_norm.batched
         elif custom_norm and not ctl.scaled_error:
-            # TRACE, don't declare (VERDICT r4 #3): an opaque error_norm=
+            # TRACE, don't declare: an opaque error_norm=
             # callable that jax.eval_shape-traces to a scalar on a
             # per-trajectory state abstract keeps the BATCHED tier — as a
             # TracedNorm in the stepper's norm slot (norm-returning
             # steppers apply it to the batched error vector on the XLA
-            # executor; Pallas kernels gate off it) or vmapped into the
+            # executor) or vmapped into the
             # driver's reducer (vector-returning steppers). Genuinely
             # untraceable callables keep the drop-to-vmapped/raise paths
             # below. Reference contract: NormFn closure, cfm.rs:131-155.
@@ -163,10 +160,7 @@ def ensemble_solve(
                     error_norm = traced.batched
                     custom_norm = False
         norm_conflict = stepper_norm is not None and custom_norm
-        scaled_conflict = (
-            ctl.scaled_error and stepper_norm is not None
-            and getattr(stepper, "fused_loop_solve", None) is None
-        )
+        scaled_conflict = ctl.scaled_error and stepper_norm is not None
         if (norm_conflict or scaled_conflict) and getattr(
             stepper, "auto_batched", False
         ):
@@ -181,6 +175,14 @@ def ensemble_solve(
                 "norms; an OPAQUE error_norm callable cannot be applied "
                 "(declare an lc.WeightedNorm for native execution, or use "
                 "batched=False dense-split steppers for the vmapped path)"
+            )
+        elif scaled_conflict:
+            # error_measure rescales the error VECTOR; this stepper
+            # returns per-trajectory norms
+            raise ValueError(
+                "scaled_error needs the error vector, but this stepper "
+                "returns per-trajectory norms (dense-split exp steppers "
+                "accept batched=False for the vmapped path)"
             )
 
     if params is None:
@@ -204,7 +206,7 @@ def ensemble_solve(
     h_batched = hasattr(h0, "ndim") and jnp.ndim(h0) == 1
 
     if use_batched:
-        # natively-batched stepper (e.g. the Pallas fused RK step): one
+        # natively-batched stepper (e.g. the fused RK step): one
         # driver loop over the whole (local) batch, no vmap. error_norm at
         # this point is already per-trajectory-reducing (a WeightedNorm's
         # .batched form) when a declared norm reached a vector-returning
@@ -214,8 +216,6 @@ def ensemble_solve(
             else lc.norm_l2_batched
         )
 
-        fused_solve = getattr(stepper, "fused_loop_solve", None)
-
         def batched(y0, p, h):
             import dataclasses as dc
 
@@ -224,56 +224,6 @@ def ensemble_solve(
                 else stepper.make_step_fn(rhs_or_op, params=p)
             )
             b = jax.tree_util.tree_leaves(y0)[0].shape[0]
-            sol = None
-            if fused_solve is not None and method == "while":
-                # whole-loop on-chip path (ops/pallas_loop.py); None when
-                # the config is not kernel-eligible. Declared-observable
-                # events run IN-KERNEL (events.py observables); opaque
-                # event callables make the config ineligible and fall
-                # back to the XLA driver below.
-                import inspect
-
-                fused_params = inspect.signature(fused_solve).parameters
-                kw = {}
-                if event_cfg is not None:
-                    if "events" not in fused_params:
-                        from .. import config as _config
-
-                        _config._warn_fallback(
-                            "events= requested: this stepper's fused loop "
-                            "carries no event state; the XLA driver "
-                            "handles events"
-                        )
-                    else:
-                        kw["events"] = event_cfg
-                if dense:
-                    if "dense" not in fused_params:
-                        from .. import config as _config
-
-                        _config._warn_fallback(
-                            "dense=True: this stepper's fused loop records "
-                            "no interpolation endpoints; the XLA dense "
-                            "driver runs instead"
-                        )
-                    else:
-                        kw["dense"] = True
-                if ((event_cfg is None or "events" in kw)
-                        and (not dense or "dense" in kw)):
-                    sol = fused_solve(y0, t_grid, h, ctl=ctl,
-                                      adaptive=adaptive, **kw)
-            if sol is not None:
-                return sol
-            if ctl.scaled_error and stepper_norm is not None:
-                # error_measure rescales the error VECTOR; this stepper
-                # returns per-trajectory norms, so only its fused loop
-                # kernel (which holds the vector) can scale them
-                raise ValueError(
-                    "scaled_error with a norm-returning stepper requires "
-                    "the fused loop kernel, which did not engage for this "
-                    "configuration (see fused_loop_solve eligibility; "
-                    "dense-split exp steppers accept batched=False for "
-                    "the vmapped path)"
-                )
             init_cf = (
                 # batched steppers with a carry (e.g. the compensated
                 # tier's lo word) seed it over the whole batch — their
@@ -284,10 +234,8 @@ def ensemble_solve(
             if dense:
                 if event_cfg is not None:
                     raise ValueError(
-                        "dense=True with events= needs the fused loop "
-                        "kernel, which did not engage for this "
-                        "configuration (the XLA dense driver carries no "
-                        "event state; see fused_loop_solve eligibility)"
+                        "dense=True with events= is unsupported (the dense "
+                        "driver carries no event state)"
                     )
                 return _batched_dense_fallback(
                     stepper, fn, y0, t_grid, h, adaptive=adaptive, ctl=ctl,
@@ -305,9 +253,6 @@ def ensemble_solve(
                     init_carry_fn=init_cf,
                     event_cfg=event_cfg,
                 )
-            step_path = getattr(stepper, "step_path", None)
-            if step_path is not None:
-                sol = dc.replace(sol, path=step_path(y0))
             # match the vmap path's output batching (uniform out_specs under
             # shard_map): broadcast the shared save grid per trajectory
             return dc.replace(
@@ -319,9 +264,8 @@ def ensemble_solve(
         # slope Hermite), mapped over the batch like the hit driver below
         if event_cfg is not None:
             raise ValueError(
-                "dense=True with events= needs the fused loop kernel "
-                "(batched modulated steppers); the vmapped dense driver "
-                "carries no event state"
+                "dense=True with events= is unsupported (the dense "
+                "driver carries no event state)"
             )
         from ..dense import solve_ivp_dense, solve_linear_dense
 
@@ -482,12 +426,7 @@ def _batched_dense_fallback(stepper, fn, y0, t_grid, h, *, adaptive, ctl,
         method=method, batch_shape=batch_shape,
         init_carry_fn=init_carry_fn,
     )
-    step_path = getattr(stepper, "step_path", None)
-    sol = dc.replace(
-        sol,
-        path=(step_path(y0) if step_path is not None else "xla-driver")
-        + "-dense",
-    )
+    sol = dc.replace(sol, path="xla-driver-dense")
     if sol.ts.ndim == 1:   # uniform (B, n_grid) save grid like the hit path
         sol = dc.replace(
             sol, ts=jnp.broadcast_to(sol.ts, batch_shape + sol.ts.shape))
@@ -495,8 +434,8 @@ def _batched_dense_fallback(stepper, fn, y0, t_grid, h, *, adaptive, ctl,
 
 
 def ensemble_mesh(n_devices: Optional[int] = None, axis: str = "traj") -> Mesh:
-    """1-D device mesh over all (or the first n) local devices — the ICI
-    layout for trajectory sharding."""
+    """1-D device mesh over all (or the first n) local devices for
+    trajectory sharding."""
     devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
@@ -524,8 +463,7 @@ def step_efficiency(sol: Solution, n_shards: int = 1,
     [0, 1] (1.0 = no straggler waste). ``n_shards`` splits the leading batch
     axis the way the mesh did (each device runs its own loop);
     ``per_shard=True`` returns the (n_shards,) per-device efficiencies
-    instead of the aggregate — the sharded path's accounting VERDICT r2
-    weak-item 5 asked for."""
+    instead of the aggregate (the sharded path's accounting)."""
     ni = jnp.asarray(sol.n_iters)
     ni = ni.reshape(n_shards, -1)
     per = jnp.sum(ni, axis=1) / (jnp.max(ni, axis=1) * ni.shape[1])

@@ -1,6 +1,6 @@
 """Explicit Runge-Kutta steppers over pytree states.
 
-TPU-native counterpart of the reference's ``rk_step`` + ``RK45Solver``
+Counterpart of the reference's ``rk_step`` + ``RK45Solver``
 (``/root/reference/src/base/rk.rs:90-155, 158-320``). The reference's hot loop
 is 6 RHS evaluations + ~15 vector-length linear-combination passes per step
 over abstract storage; here the stage loop is statically unrolled at trace
@@ -159,8 +159,8 @@ class RungeKutta:
     # compensated (double-f32) state accumulation: carry the state as a
     # TwoSum-renormalized (hi, lo) pair and fold in the directly-computed
     # step increment, so n-step f32 accumulation drift (~n*eps*|y|)
-    # vanishes — the reference's f64 regime on f32 hardware (comp.py,
-    # VERDICT r4 #1). The lo word rides the stepper carry.
+    # vanishes — the reference's f64 regime on f32 hardware (comp.py).
+    # The lo word rides the stepper carry.
     compensated: bool = False
 
     # RHS signature is f(t, y) (vs op_fn(t) for exp steppers) — used by

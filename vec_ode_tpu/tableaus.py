@@ -1,6 +1,6 @@
 """Coefficient tables: Butcher tableaus, splitting and CFM coefficients.
 
-TPU-native counterpart of the reference's static data module
+Counterpart of the reference's static data module
 (``/root/reference/src/dat/mod.rs:3-82``). Every constant the reference ships is
 reproduced here from the same closed-form expressions (f64 exact); extra
 tableaus (classic RK4, Dormand-Prince 5(4), Bogacki-Shampine 3(2), Cash-Karp)

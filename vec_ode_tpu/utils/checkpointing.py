@@ -3,8 +3,7 @@
 The reference's 'checkpoints' are time-grid hits, not fault tolerance
 (SURVEY §5). This adds actual fault tolerance: the integration carry
 (:class:`~vec_ode_tpu.driver.IntState`) is a flat pytree of arrays, so it
-serializes directly — with orbax when available (StandardCheckpointer, the
-current non-deprecated surface), else a numpy ``.npz`` fallback — and
+serializes directly to a numpy ``.npz`` of its leaves, and
 :func:`~vec_ode_tpu.driver.resume` continues from it.
 """
 
@@ -20,21 +19,10 @@ from ..driver import IntState
 
 
 def save_state(path, state: IntState) -> None:
-    """Persist an integration carry. Uses orbax if importable (sharded,
-    async-capable), else a plain npz of host arrays."""
-    path = pathlib.Path(path)
-    try:
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.StandardCheckpointer()
-        ckptr.save(path.resolve(), jax.device_get(state), force=True)
-        ckptr.wait_until_finished()
-        return
-    except ImportError:
-        pass
-    flat, treedef = jax.tree_util.tree_flatten(state)
+    """Persist an integration carry as an npz of its leaves on the host."""
+    flat = jax.tree_util.tree_leaves(state)
     np.savez(
-        _npz_path(path),
+        _npz_path(pathlib.Path(path)),
         **{f"leaf_{i}": np.asarray(a) for i, a in enumerate(flat)},
     )
 
@@ -49,28 +37,12 @@ def _npz_path(path: pathlib.Path) -> pathlib.Path:
 
 def load_state(path, like: Optional[IntState] = None) -> IntState:
     """Restore a carry saved by :func:`save_state`. ``like`` (a template
-    IntState with matching structure) is required for the orbax path and
-    used for structure/dtype validation in the npz path."""
-    path = pathlib.Path(path)
-    try:
-        import orbax.checkpoint as ocp
-
-        if path.exists() and path.is_dir():
-            if like is None:
-                raise ValueError(
-                    "load_state from orbax requires a template `like`"
-                )
-            ckptr = ocp.StandardCheckpointer()
-            restored = ckptr.restore(
-                path.resolve(), jax.device_get(like)
-            )
-            return jax.tree_util.tree_map(jax.numpy.asarray, restored)
-    except ImportError:
-        pass
-    data = np.load(_npz_path(path))
+    IntState with matching structure) is required: it gives the tree
+    structure and each leaf's dtype."""
+    data = np.load(_npz_path(pathlib.Path(path)))
     leaves = [data[f"leaf_{i}"] for i in range(len(data.files))]
     if like is None:
-        raise ValueError("load_state from npz requires a template `like`")
+        raise ValueError("load_state requires a template `like`")
     like_leaves, treedef = jax.tree_util.tree_flatten(like)
     if len(leaves) != len(like_leaves):
         raise ValueError(

@@ -1,10 +1,11 @@
 """Matmul precision policy.
 
-On TPU, f32 matmuls default to bf16 multiplications on the MXU (~1e-3
-relative error). That noise floor poisons embedded error estimates — the
-controller sees O(1e-3 * |K|) phantom error and rejects its way down to tiny
-steps. Every matmul on the framework's numerical path therefore pins
-``Precision.HIGHEST`` (full f32 accumulation) unless the caller overrides.
+At DEFAULT precision an f32 matmul may run with reduced-precision
+multiplications (TF32 on a GPU's tensor cores, ~1e-3 relative error). That
+noise floor poisons embedded error estimates — the controller sees
+O(1e-3 * |K|) phantom error and rejects its way down to tiny steps. Every
+matmul on the framework's numerical path therefore pins
+``Precision.HIGHEST`` (full f32 products) unless the caller overrides.
 
 User RHS functions should do the same for adaptive runs: use
 ``vec_ode_tpu.utils.prec.mm`` / pass ``precision=HIGHEST`` to einsum.
